@@ -1,0 +1,98 @@
+"""Serving launcher of the port: the continuous-batching engine on
+seeded synthetic prompts.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine \\
+        --arch moe-gpt3-s --requests 16
+
+Submits ``--requests`` prompts of ``--prompt-len`` (a fixed length or a
+``lo:hi`` range) seeded tokens, each asking ``--gen`` (or ``lo:hi``) new
+tokens, runs the engine (its default options) until idle and prints
+``stats()`` as one JSON line. It runs on the card; ``--device cpu`` runs
+it on the CPU. ``--engine`` is accepted so the JAX launcher's command
+line runs unchanged; the engine is the only serving mode ported. The
+Poisson trace replay, the HTTP ingress and ``/metrics`` of the JAX
+launcher come with ROADMAP.md's later slices.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ArchConfig
+
+
+def _range(text: str) -> Tuple[int, int]:
+    lo, _, hi = text.partition(":")
+    return int(lo), int(hi or lo)
+
+
+def configure(args) -> ArchConfig:
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_partitions=args.num_partitions))
+
+
+def synthetic_requests(n: int, vocab: int, prompt_len: Tuple[int, int],
+                       gen: Tuple[int, int], seed: int
+                       ) -> List[Tuple[np.ndarray, int]]:
+    """``n`` (prompt, max_new_tokens) pairs drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        length = int(rng.integers(prompt_len[0], prompt_len[1] + 1))
+        prompt = rng.integers(0, vocab, size=length, dtype=np.int32)
+        out.append((prompt, int(rng.integers(gen[0], gen[1] + 1))))
+    return out
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--engine", action="store_true",
+                    help="the continuous-batching engine (the only mode "
+                         "ported; accepted as the JAX launcher takes it)")
+    ap.add_argument("--arch", default="moe-gpt3-s")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the config's tiny same-family reduction")
+    ap.add_argument("--num-partitions", type=int, default=4,
+                    help="MoE pipeline chunks n for prefill")
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--prompt-len", default="16:64",
+                    help="prompt length, N or LO:HI")
+    ap.add_argument("--gen", default="16:32",
+                    help="new tokens per request, N or LO:HI")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seeds the weights and the prompts")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda)")
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict:
+    args = build_parser().parse_args(argv)
+    from repro_torch.serve import Engine, EngineOptions
+
+    cfg = configure(args)
+    engine = Engine(cfg, options=EngineOptions(device=args.device),
+                    seed=args.seed)
+    for prompt, gen in synthetic_requests(
+            args.requests, cfg.vocab_size, _range(args.prompt_len),
+            _range(args.gen), args.seed):
+        engine.submit(prompt, max_new_tokens=gen)
+    engine.run_until_idle()
+    stats = engine.stats()
+    stats["arch"] = cfg.name
+    print(json.dumps(stats, sort_keys=True))
+    return stats
+
+
+if __name__ == "__main__":
+    main()

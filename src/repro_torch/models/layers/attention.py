@@ -1,0 +1,229 @@
+"""Attention over the paged KV cache: GQA/MHA, sliding windows, chunked
+prefill and batched decode.
+
+The counterpart of the paged half of ``repro.models.layers.attention``:
+
+* ``flash_attention`` is the JAX package's blockwise online-softmax
+  attention as a plain PyTorch function (prefill chunks, with
+  ``q_offset``); the q and kv blocks are Python loops.
+* ``decode_attention`` is single-query attention over gathered pages.
+* ``apply`` scatters this step's K/V into the pools (in place —
+  see ``models/kv_cache``) *before* attention reads them, then runs
+  decode through the hand-written CUDA kernel
+  (``repro_torch.kernels.paged_attention``) when ``attn_kernel ==
+  "kernel"``, else through ``gather_pages`` + ``decode_attention``.
+
+Scores, softmax and the PV sum are fp32 whatever the compute dtype (the
+JAX package's ``preferred_element_type=float32``); ``NEG_INF`` is only
+ever used in fp32 scores, where it stays finite.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import kv_cache as KV
+from repro_torch.models.module import Spec
+
+NEG_INF = -2.0e38
+ATTN_KERNELS = ("kernel", "gather")   # decode attention paths
+
+
+def specs(cfg: ArchConfig):
+    a = cfg.attn
+    if a.mla is not None:
+        raise NotImplementedError(
+            "MLA comes with ROADMAP.md's 'Other architectures' slice")
+    d, hd = cfg.d_model, cfg.head_dim
+    s = {
+        "w_q": Spec((d, a.num_heads, hd), ("embed", "heads", "head_dim")),
+        "w_k": Spec((d, a.num_kv_heads, hd),
+                    ("embed", "kv_heads", "head_dim")),
+        "w_v": Spec((d, a.num_kv_heads, hd),
+                    ("embed", "kv_heads", "head_dim")),
+        "w_o": Spec((a.num_heads, hd, d),
+                    ("heads", "head_dim", "embed_out")),
+    }
+    if a.qkv_bias:
+        s["b_q"] = Spec((a.num_heads, hd), ("heads", "head_dim"), "zeros")
+        s["b_k"] = Spec((a.num_kv_heads, hd), ("kv_heads", "head_dim"),
+                        "zeros")
+        s["b_v"] = Spec((a.num_kv_heads, hd), ("kv_heads", "head_dim"),
+                        "zeros")
+    return s
+
+
+def _pad_seq(x: torch.Tensor, to: int) -> torch.Tensor:
+    """Zero-pad dim 1 of ``[B, S, H, D]`` up to ``to``."""
+    return F.pad(x, (0, 0, 0, 0, 0, to - x.shape[1]))
+
+
+def flash_attention(q, k, v, *, causal: bool, window: int = 0,
+                    q_block: int = 512, kv_block: int = 512,
+                    q_offset=0):
+    """Blockwise attention. q ``[B,Sq,Hq,D]``, k/v ``[B,Sk,Kv,D]`` ->
+    ``[B,Sq,Hq,D]`` in q's dtype.
+
+    ``q_offset``: absolute position of ``q[:, 0]`` (chunked prefill); an
+    int or a 0-d tensor, which keeps the position on the device. Sq/Sk
+    are padded up to block multiples internally.
+    """
+    b, sq, hq, d = q.shape
+    sk, kv_heads = k.shape[1], k.shape[2]
+    g = hq // kv_heads
+    scale = d ** -0.5
+    dev = q.device
+
+    qb, kb = min(q_block, sq), min(kv_block, sk)
+    sq_p, sk_p = -(-sq // qb) * qb, -(-sk // kb) * kb
+    nq, nk = sq_p // qb, sk_p // kb
+    qp = _pad_seq(q, sq_p).reshape(b, nq, qb, kv_heads, g, d).float()
+    kp = _pad_seq(k, sk_p).reshape(b, nk, kb, kv_heads, d).float()
+    vp = _pad_seq(v, sk_p).reshape(b, nk, kb, kv_heads, d).float()
+
+    q_pos = (torch.arange(sq_p, device=dev) + q_offset).reshape(nq, qb)
+    k_pos = torch.arange(sk_p, device=dev).reshape(nk, kb)
+    k_valid = k_pos < sk
+
+    outs = []
+    for i in range(nq):
+        qc, qpos = qp[:, i], q_pos[i]                   # [B,qb,K,G,D]
+        o = torch.zeros((b, kv_heads, g, qb, d), device=dev)
+        m = torch.full((b, kv_heads, g, qb), NEG_INF, device=dev)
+        l = torch.zeros((b, kv_heads, g, qb), device=dev)
+        for j in range(nk):
+            s_ = torch.einsum("bqkgd,btkd->bkgqt", qc, kp[:, j]) * scale
+            mask = k_valid[j][None, :]
+            if causal:
+                mask = mask & (qpos[:, None] >= k_pos[j][None, :])
+            if window > 0:
+                mask = mask & (qpos[:, None] - k_pos[j][None, :] < window)
+            s_ = torch.where(mask, s_, NEG_INF)
+            m_new = torch.maximum(m, s_.amax(dim=-1))
+            p = torch.exp(s_ - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            pv = torch.einsum("bkgqt,btkd->bkgqd", p, vp[:, j])
+            o = o * alpha[..., None] + pv
+            m = m_new
+        o = o / torch.clamp(l[..., None], min=1e-30)
+        outs.append(o.permute(0, 3, 1, 2, 4).to(q.dtype))  # [B,qb,K,G,D]
+    out = torch.cat(outs, dim=1).reshape(b, sq_p, hq, d)
+    return out[:, :sq]
+
+
+def decode_attention(q, k, v, cache_len, *, window: int = 0,
+                     ring: bool = False):
+    """Single-step attention over a cache.
+
+    q ``[B,1,Hq,D]``; k/v ``[B,T,Kv,D]``; cache_len: int or ``[B]``
+    tensor — valid entries per sequence. ``ring``: the cache is a ring
+    buffer of size ``window`` (all slots valid once full).
+    """
+    b, t, kv_heads, d = k.shape
+    hq = q.shape[2]
+    g = hq // kv_heads
+    qe = q.reshape(b, kv_heads, g, d).float()
+    s_ = torch.einsum("bkgd,btkd->bkgt", qe, k.float()) * (d ** -0.5)
+    cl = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
+    idx = torch.arange(t, device=q.device)[None, :]
+    if ring:
+        valid = idx < torch.clamp(cl, max=t)
+    else:
+        valid = idx < cl
+        if window > 0:
+            valid = valid & (idx >= cl - window)
+    s_ = torch.where(valid[:, None, None, :], s_, NEG_INF)
+    m = s_.amax(dim=-1, keepdim=True)
+    p = torch.exp(s_ - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgt,btkd->bkgd", p / torch.clamp(l, min=1e-30),
+                       v.float())
+    return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def _proj_qkv(params, x, cfg: ArchConfig):
+    a = cfg.attn
+    dt = x.dtype
+    q = torch.einsum("bsd,dhe->bshe", x, params["w_q"].to(dt))
+    k = torch.einsum("bsd,dhe->bshe", x, params["w_k"].to(dt))
+    v = torch.einsum("bsd,dhe->bshe", x, params["w_v"].to(dt))
+    if a.qkv_bias:
+        q = q + params["b_q"].to(dt)
+        k = k + params["b_k"].to(dt)
+        v = v + params["b_v"].to(dt)
+    return q, k, v
+
+
+def _check_positional(cfg: ArchConfig):
+    if cfg.positional == "rope" and cfg.attn.rope_theta != 0.0:
+        raise NotImplementedError(
+            "rotary positions come with ROADMAP.md's 'Other "
+            "architectures' slice; the port serves learned positions")
+
+
+def apply(params, x, *, cfg: ArchConfig, positions, is_global: bool = True,
+          cache: Optional[dict] = None):
+    """Self-attention over a paged KV pool (``repro_torch.serve``).
+    Returns (out, new_cache).
+
+    ``cache``: ``k_pool``/``v_pool`` ``[P, ps, Kv, D]``, ``page_table``
+    ``[B, NP]``, ``lens`` ``[B]`` (tokens already cached per sequence),
+    optionally ``write_valid`` ``[B, S]`` and ``write_sink`` ``[B]``,
+    and ``attn_kernel``: ``"kernel"`` (decode through the CUDA
+    paged-decode kernel) or ``"gather"``; anything else raises. The pools
+    are updated in place and returned as the new cache.
+
+    Decode (S == 1) runs every slot with its own cache length; chunked
+    prefill (S > 1) requires B == 1 and attends the chunk against the
+    gathered pages with ``q_offset = lens[0]``. The paged-free training
+    path comes with ROADMAP.md's 'Training' slice.
+    """
+    if cache is None or "k_pool" not in cache:
+        raise NotImplementedError(
+            "the port's attention runs over paged caches only; the "
+            "paged-free training path is ROADMAP.md's 'Training' slice")
+    _check_positional(cfg)
+    a = cfg.attn
+    window = 0 if (is_global and a.global_period > 1) else a.window
+    s = x.shape[1]
+
+    q, k, v = _proj_qkv(params, x, cfg)
+    valid = cache.get("write_valid")
+    sink = cache.get("write_sink")
+    sink = 0 if sink is None else sink
+    k_pool = KV.scatter_pages(cache["k_pool"], cache["page_table"],
+                              positions, k, valid, sink=sink)
+    v_pool = KV.scatter_pages(cache["v_pool"], cache["page_table"],
+                              positions, v, valid, sink=sink)
+    new_cache = {"k_pool": k_pool, "v_pool": v_pool}
+
+    kern = cache.get("attn_kernel")
+    if kern not in ATTN_KERNELS:
+        raise ValueError(f"attn_kernel must be one of {ATTN_KERNELS}, "
+                         f"got {kern!r}")
+    if s == 1 and kern == "kernel":
+        from repro_torch.kernels.paged_attention import \
+            paged_decode_attention
+        out = paged_decode_attention(q.contiguous(), k_pool, v_pool,
+                                     cache["page_table"],
+                                     cache["lens"] + 1, window=window)
+    else:
+        kf = KV.gather_pages(k_pool, cache["page_table"])  # [B,NP*ps,Kv,D]
+        vf = KV.gather_pages(v_pool, cache["page_table"])
+        if s == 1:
+            out = decode_attention(q, kf, vf, cache["lens"] + 1,
+                                   window=window)
+        else:
+            assert x.shape[0] == 1, "paged chunked prefill runs one sequence"
+            g = a.num_heads // a.num_kv_heads
+            if g > 1:
+                kf = kf.repeat_interleave(g, dim=2)
+                vf = vf.repeat_interleave(g, dim=2)
+            out = flash_attention(q, kf, vf, causal=True, window=window,
+                                  q_offset=cache["lens"][0])
+    out = torch.einsum("bshe,hed->bsd", out, params["w_o"].to(x.dtype))
+    return out, new_cache

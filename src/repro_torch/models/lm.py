@@ -1,0 +1,171 @@
+"""Decoder-only language model over paged KV: init, forward, and the two
+serving steps, as the paged half of ``repro.models.lm``.
+
+Depth is a Python loop over the layer periods (JAX scans a stacked
+``periods`` axis). Parameters keep the JAX package's layouts, with the
+``periods`` axis unstacked into a list — ``repro_torch.convert`` turns a
+JAX tree into this one by slicing. The paged pools are updated in
+place; ``decode_step_paged`` and ``prefill_chunk_paged`` still return
+them, so the call sites read like the JAX package's.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import dtype_of, resolve_device
+from repro_torch.models import blocks, kv_cache, module
+from repro_torch.models.layers import embedding, norm
+
+
+def specs_tree(cfg: ArchConfig):
+    if cfg.kind != "decoder":
+        raise NotImplementedError(
+            "encoder-decoder models come with ROADMAP.md's 'Other "
+            "architectures' slice")
+    roles = cfg.layer_roles()
+    period = {f"l{i}": blocks.block_specs(cfg, role)
+              for i, role in enumerate(roles)}
+    return {
+        "embed": embedding.specs(cfg),
+        "periods": module.stack(period, cfg.num_periods),
+        "final_norm": norm.specs(cfg.d_model, cfg.norm),
+    }
+
+
+def init(cfg: ArchConfig, seed: int = 0, *, device=None):
+    """Random fp32 parameters from a seeded ``torch.Generator`` on
+    ``device`` (default ``cuda``; raises without CUDA unless
+    ``device="cpu"``)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return module.build(specs_tree(cfg), gen, dev)
+
+
+def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
+    total = module.count(specs_tree(cfg))
+    if active_only and cfg.moe is not None:
+        from repro_torch.moe import experts as E
+        per_layer = module.count(E.specs(cfg))
+        n_moe = cfg.num_periods * sum(r["moe"] for r in cfg.layer_roles())
+        inactive = 1.0 - cfg.moe.top_k / cfg.moe.num_experts
+        total -= int(n_moe * per_layer * inactive)
+    return total
+
+
+def compute_params(params, cfg: ArchConfig):
+    """The compute-dtype copy of the weights, made once at load. The
+    router gate stays fp32, as the JAX package's gate casts to fp32 per
+    op; every other float leaf is cast to ``cfg.compute_dtype``."""
+    return module.cast_tree(params, dtype_of(cfg.compute_dtype),
+                            keep=lambda path: "router" in path)
+
+
+def forward(params, tokens: torch.Tensor, cfg: ArchConfig, *,
+            mode: str, cache: dict):
+    """Returns (logits, aux, new_cache) over a paged ``cache``:
+    ``layers`` (the per-period pools), ``page_table``, ``lens``,
+    ``attn_kernel`` (``"kernel"`` or ``"gather"``), and optionally
+    ``write_valid``, ``write_sink``."""
+    if cache is None or "page_table" not in cache:
+        raise NotImplementedError(
+            "the port's forward runs over paged caches; the training "
+            "forward is ROADMAP.md's 'Training' slice")
+    dt = dtype_of(cfg.compute_dtype)
+    lens = cache["lens"]
+
+    if mode == "decode":
+        positions = lens[:, None].long()                  # per-slot [B, 1]
+        x = embedding.embed(params["embed"], tokens, cfg,
+                            positions=positions, dtype=dt)
+    else:
+        x = embedding.embed(params["embed"], tokens, cfg, dtype=dt)
+        s = x.shape[1]
+        base = torch.arange(s, device=x.device)[None, :]
+        positions = lens[:, None].long() + base           # chunk at offset
+        if cfg.positional == "learned":
+            x = x + params["embed"]["pos"][positions[0]].to(dt)[None]
+
+    shared_kv = {k: cache.get(k) for k in ("page_table", "lens",
+                                           "write_valid", "write_sink",
+                                           "attn_kernel")
+                 if cache.get(k) is not None}
+    roles = cfg.layer_roles()
+    aux = {"aux_loss": torch.zeros((), device=x.device),
+           "z_loss": torch.zeros((), device=x.device)}
+    new_layers = []
+    for pparams, pcache in zip(params["periods"], cache["layers"]):
+        new_pcache = {}
+        for i, role in enumerate(roles):
+            lcache = dict(pcache[f"l{i}"], **shared_kv)
+            x, a, nc = blocks.block_apply(
+                pparams[f"l{i}"], x, cfg=cfg, role=role,
+                positions=positions, mode=mode, cache=lcache)
+            for k in a:
+                aux[k] = aux[k] + a[k]
+            new_pcache[f"l{i}"] = nc
+        new_layers.append(new_pcache)
+
+    x = norm.apply(params["final_norm"], x, cfg.norm)
+    logits = embedding.logits(params["embed"], x, cfg)
+    return logits, aux, {"layers": new_layers}
+
+
+def init_paged_cache(cfg: ArchConfig, num_pages: int, page_size: int,
+                     dtype=torch.bfloat16, device="cpu"):
+    """Global page pools shared by every in-flight sequence."""
+    return kv_cache.init_paged_pools(cfg, num_pages, page_size, dtype,
+                                     device)
+
+
+def decode_step_paged(params, pools, page_table, lens, tokens,
+                      cfg: ArchConfig, active=None, write_sink=None,
+                      attn_kernel: Optional[str] = None):
+    """One decode step over the whole continuous batch.
+
+    pools: the per-period paged pools; page_table ``[slots, NP]``; lens
+    ``[slots]`` (tokens cached per slot); tokens ``[slots, 1]``;
+    ``active`` ``[slots]`` masks finished / mid-prefill slots so their
+    KV writes land in the sink (page 0, or per-slot ``write_sink``).
+    ``attn_kernel``: ``"kernel"`` runs the CUDA paged-decode kernel,
+    ``"gather"`` the gather baseline; None picks ``"kernel"`` for CUDA
+    tensors and ``"gather"`` for CPU ones. Returns (last-token logits
+    ``[slots, vocab]``, pools — updated in place).
+    """
+    if attn_kernel is None:
+        attn_kernel = "kernel" if tokens.device.type == "cuda" else "gather"
+    cache = {"layers": pools, "page_table": page_table, "lens": lens,
+             "attn_kernel": attn_kernel}
+    if active is not None:
+        cache["write_valid"] = active[:, None]
+    if write_sink is not None:
+        cache["write_sink"] = write_sink
+    logits, _, new_cache = forward(params, tokens, cfg, mode="decode",
+                                   cache=cache)
+    return logits[:, -1], new_cache["layers"]
+
+
+def prefill_chunk_paged(params, pools, page_table, pos0, tokens, valid_len,
+                        cfg: ArchConfig, write_sink=None):
+    """One chunked-prefill step for a single sequence.
+
+    tokens ``[1, C]`` (bucket-padded); page_table ``[1, NP]``; pos0
+    ``[1]`` = tokens already prefilled; valid_len (int) = real tokens in
+    this chunk; ``write_sink`` ``[1]`` = the sink page masked writes go
+    to. Pad positions' KV writes are masked and their logits discarded.
+    Returns (logits at the last real token ``[1, vocab]``, pools —
+    updated in place).
+    """
+    c = tokens.shape[1]
+    valid_len = int(valid_len)
+    write_valid = torch.arange(c, device=tokens.device)[None, :] < valid_len
+    cache = {"layers": pools, "page_table": page_table, "lens": pos0,
+             "write_valid": write_valid, "attn_kernel": "gather"}
+    if write_sink is not None:
+        cache["write_sink"] = write_sink
+    logits, _, new_cache = forward(params, tokens, cfg, mode="prefill",
+                                   cache=cache)
+    return logits[:, max(valid_len - 1, 0)], new_cache["layers"]

@@ -1,0 +1,26 @@
+"""``repro_torch.serve`` — continuous-batching serving over paged KV.
+
+``engine.py``      :class:`Engine` / :class:`EngineOptions`: params,
+                   page pools, scheduler; ``submit`` / ``step`` /
+                   ``run_until_idle`` / ``stats``; recompute preemption
+``scheduler.py``   :class:`Scheduler`: FCFS admission in both
+                   reservation modes, chunked-prefill / decode interleave
+``state_cache.py`` :class:`StateCache`: the protocol the engine and
+                   scheduler program against
+``paged_kv.py``    :class:`PagedKVCache`: host page allocator over the
+                   device pools, sink page, byte counters
+``request.py``     :class:`Request` / :class:`RequestState`
+``sampling.py``    greedy / temperature / top-k / top-p with seeded
+                   per-request streams; host-side stop matching
+``adaptive.py``    prefill bucketing (``bucket_of``)
+"""
+from repro_torch.serve.engine import Engine, EngineOptions
+from repro_torch.serve.paged_kv import PagedKVCache
+from repro_torch.serve.request import Request, RequestState
+from repro_torch.serve.sampling import SamplingParams, sample_tokens
+from repro_torch.serve.scheduler import Scheduler
+from repro_torch.serve.state_cache import StateCache
+
+__all__ = ["Engine", "EngineOptions", "PagedKVCache", "Request",
+           "RequestState", "SamplingParams", "Scheduler", "StateCache",
+           "sample_tokens"]
