@@ -8,31 +8,48 @@ port only (never ``jax``, never the JAX package ``repro``). Phases, in
 order; any failure ends the run with a non-zero exit and no result line:
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off;
-2. build: compiles every CUDA kernel from the checkout's sources;
-3. kernel vs plain: each kernel against its plain PyTorch version at the
-   serving engine's shapes and at one memory-bound GQA shape, fp32 and
-   bf16, with and without a window, within ``ref.tolerance`` (1e-5 in
-   fp32; one bf16 rounding of the largest output in bf16); each timed
-   (device time from ``torch.profiler``, wall time from CUDA events)
-   beside its plain version and its bound;
+2. build: compiles every CUDA kernel from the checkout's sources, one
+   ``nvcc`` per source, all at once;
+3. kernel vs plain: each kernel against its plain PyTorch version, fp32
+   and bf16, each case timed (device time from ``torch.profiler``) beside
+   its plain version, its bound and, where one PyTorch call computes the
+   same function, that call: paged decode at the serving engine's shapes
+   and one memory-bound GQA shape, with and without a window; the top-k
+   router at its training and serving shapes (indices equal,
+   probabilities within 1e-6); the expert FFN at the training chunk and
+   the serving capacity, gated silu and a ragged C; flash attention at
+   the training shape, with a window and with GQA. Limits: 1e-5 in fp32;
+   in bf16 each kernel's ``ref.tolerance``: one rounding of the largest
+   output for paged decode and the expert FFN, and for flash attention a
+   limit per element (one output rounding plus the bf16 rounding of its
+   probabilities, weighted by |v|);
 4. serve: full-width moe-gpt3-s in bf16 through the launcher's ``main``
    and then through ``Engine`` with 16 seeded requests and a page pool
    small enough to force recompute preemption; the decode kernel must
-   have launched once per attention layer of every decode step; then a
+   have launched once per attention layer of every decode step, and the
+   router and expert-FFN kernels once per MoE layer of every chunk (one
+   a decode step, ``n`` a prefill step); then a
    ``torch.profiler`` trace of 10 full-batch decode steps;
-5. kernel vs gather: equal greedy tokens at full width, 2 layers, fp32;
-   then the serve run again with the gather path twice and the kernel
-   once (order kernel, gather, gather, kernel: two samples of each on
-   this machine), and the share of equal bf16 tokens (printed, not
-   held);
-6. the ``kernels`` JSON line; 7. the ``ok`` JSON line, last.
+5. kernel vs gather: equal greedy decode tokens at full width, 2
+   layers, fp32;
+6. train: full-width moe-gpt3-s (bf16 compute, fp32 params, AdamW),
+   batch 8 x 1024, n = 4, through ``runtime.train``: 6 steps under NONE,
+   2 under each of S1-S4; every loss finite and each kernel launched
+   exactly ``LAUNCHES_PER_STEP`` times a step; step ms, tokens/s, peak
+   memory and a profiled step's device-busy share per strategy;
+7. card vs CPU: 3 fp32 steps of 2-layer full-width moe-gpt3-s on the
+   card (kernels) and on the CPU (plain versions), losses within
+   ``CARD_VS_CPU_RTOL``;
+8. the ``kernels`` JSON line; 9. the ``ok`` JSON line, last.
 
 Exits non-zero without CUDA, and in a directory holding this file alone.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -122,9 +139,7 @@ def bound_ms(case) -> tuple:
               + 2 * b * hq * d * item           # q in, out
               + case["page_table"].numel() * 4 + b * 4)
     flops = 4 * toks * hq * d                   # q.k and p.v, mul + add
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS[case["dtype"]] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return roof(nbytes, flops, case["dtype"])
 
 
 def cuda_ms(torch, fn, iters: int) -> tuple:
@@ -144,16 +159,18 @@ def cuda_ms(torch, fn, iters: int) -> tuple:
     end.record()
     torch.cuda.synchronize()
     wall = start.elapsed_time(end) / iters
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    dev = sum(e.self_device_time_total for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA)
-    if dev <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return dev / 1e3 / iters, wall
+    for _ in range(3):         # a trace now and then comes back empty
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        dev = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+        if dev > 0:
+            return dev / 1e3 / iters, wall
+        log("cuda_ms: the profiler saw no device time; tracing again")
+    raise AssertionError("the profiler saw no device time in 3 traces")
 
 
 def check_paged_decode(torch, case):
@@ -196,6 +213,175 @@ def check_paged_decode(torch, case):
     return row
 
 
+def roof(nbytes: float, flops: float, dtype: str) -> tuple:
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    the HBM rate and the operations over the dtype's peak rate."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def randn(torch, shape, seed, scale=1.0, dtype="float32"):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device="cuda") * scale
+    return x.to(getattr(torch, dtype))
+
+
+def kernel_row(kernel, case, dtype, diff, tol, out, kernel_fn, plain_fn,
+               bound, library_fn=None, iters=20, **extra):
+    """Check a case and time it, and log it: ``diff`` is the kernel's
+    elementwise |difference| from its plain version, ``tol`` the limit,
+    one number or one per element. The row gives the largest difference,
+    the limit where the difference comes closest to it and that ratio;
+    device ms of the kernel, of its plain version and, where one PyTorch
+    call computes the same function, of that call; the bound from
+    ``roof``."""
+    import torch
+    tol = torch.as_tensor(tol, dtype=torch.float32,
+                          device=diff.device).expand(diff.shape)
+    ratio = (diff.float() / tol).flatten()
+    worst = int(ratio.argmax())
+    err, over = diff.max().item(), ratio[worst].item()
+    tol = tol.flatten()[worst].item()
+    if not torch.isfinite(out.float()).all() or not over <= 1.0:
+        raise AssertionError(f"{kernel} {case} {dtype}: max abs err {err}; "
+                             f"{over:.3g} of the limit {tol} at its worst "
+                             f"element")
+    ms, wall_ms = cuda_ms(torch, kernel_fn, iters)
+    plain_ms, _ = cuda_ms(torch, plain_fn, max(3, iters // 4))
+    library_ms = (cuda_ms(torch, library_fn, iters)[0]
+                  if library_fn is not None else None)
+    row = dict(kernel=kernel, case=case, dtype=dtype, max_abs_err=err,
+               tol=tol, err_over_tol=over, ms=ms, wall_ms=wall_ms, plain_ms=plain_ms,
+               bound_ms=bound[0], bound_by=bound[1], library_ms=library_ms,
+               **extra)
+    log("kernel-case " + json.dumps(row))
+    return row
+
+
+def check_topk(torch, case, t, e, k, dtype, seed):
+    """The router kernel against its plain version: indices must be
+    equal; a row that differs is printed with the plain version's margin
+    between its k-th and (k+1)-th probability before the run fails."""
+    from repro_torch.kernels.topk_router import topk_router, topk_router_ref
+    logits = randn(torch, (t, e), seed, dtype=dtype)
+    p, i = topk_router(logits, k)
+    pr, ir = topk_router_ref(logits, k)
+    torch.cuda.synchronize()
+    bad = (i != ir).any(dim=-1).nonzero().flatten().tolist()
+    if bad:
+        probs = torch.softmax(logits.float(), -1).sort(-1, True).values
+        for row in bad[:20]:
+            log(f"topk_router {case} {dtype} row {row}: kernel "
+                f"{i[row].tolist()} plain {ir[row].tolist()} margin "
+                f"{(probs[row, k - 1] - probs[row, k]).item():.3e}")
+        raise AssertionError(f"topk_router {case} {dtype}: {len(bad)} rows "
+                             f"route differently")
+    item = logits.element_size()
+    return kernel_row(
+        "topk_router", case, dtype, (p - pr).abs(), 1e-6, p,
+        lambda: topk_router(logits, k), lambda: topk_router_ref(logits, k),
+        roof(t * e * item + t * k * 8, 5 * t * e, "float32"),
+        shape=dict(T=t, E=e, k=k))
+
+
+def check_grouped(torch, case, e, c, m, h, gated, act, dtype, seed):
+    from repro_torch.kernels.grouped_ffn import grouped_ffn, grouped_ffn_ref
+    from repro_torch.kernels.grouped_ffn.ref import tolerance
+    x = randn(torch, (e, c, m), seed, dtype=dtype)
+    wu = randn(torch, (e, m, h), seed + 1, m ** -0.5, dtype)
+    wg = randn(torch, (e, m, h), seed + 2, m ** -0.5, dtype) if gated \
+        else None
+    wd = randn(torch, (e, h, m), seed + 3, h ** -0.5, dtype)
+    out = grouped_ffn(x, wu, wg, wd, act)
+    ref = grouped_ffn_ref(x, wu, wg, wd, act)
+    torch.cuda.synchronize()
+    n_w = 3 if gated else 2
+    item = x.element_size()
+    return kernel_row(
+        "grouped_ffn", case, dtype,
+        (out.float() - ref.float()).abs(), tolerance(ref), out,
+        lambda: grouped_ffn(x, wu, wg, wd, act),
+        lambda: grouped_ffn_ref(x, wu, wg, wd, act),
+        roof((2 * e * c * m + n_w * e * m * h) * item,
+             2 * e * c * m * h * n_w, dtype),
+        iters=10, shape=dict(E=e, C=c, M=m, H=h, gated=gated, act=act),
+        max_abs_ref=ref.float().abs().max().item())
+
+
+def attended_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    total = 0
+    for i in range(sq):
+        hi = min(i + 1, sk) if causal else sk
+        lo = max(0, i - window + 1) if window > 0 else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def check_flash(torch, case, b, s, hq, kv, d, window, dtype, seed,
+                library=False):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.flash_attention.ref import tolerance
+    q = randn(torch, (b, s, hq, d), seed, dtype=dtype)
+    k = randn(torch, (b, s, kv, d), seed + 1, dtype=dtype)
+    v = randn(torch, (b, s, kv, d), seed + 2, dtype=dtype)
+    out = flash_attention(q, k, v, causal=True, window=window)
+    ref = flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    item = q.element_size()
+    lib = None
+    if library:        # a yardstick only: the port never calls it
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True)
+    return kernel_row(
+        "flash_attention", case, dtype,
+        (out.float() - ref.float()).abs(),
+        tolerance(q, k, v, ref, causal=True, window=window), out,
+        lambda: flash_attention(q, k, v, causal=True, window=window),
+        lambda: flash_attention_ref(q, k, v, causal=True, window=window),
+        roof((2 * b * s * hq * d + 2 * b * s * kv * d) * item,
+             4 * b * hq * d * attended_pairs(s, s, True, window), dtype),
+        library_fn=lib, iters=10,
+        shape=dict(B=b, S=s, Hq=hq, Kv=kv, D=d, window=window),
+        max_abs_ref=ref.float().abs().max().item())
+
+
+def train_kernel_cases(torch) -> list:
+    """Each training-slice kernel against its plain version, fp32 and
+    bf16: the router at its training chunk (2048 tokens, 64 experts) and
+    its serving shapes (8 decode slots; a 64-token prefill chunk in 4
+    pieces); the expert FFN at moe-gpt3-s's training chunk (C 40) and
+    decode/prefill capacity (C 8), gated silu and a ragged C; attention
+    at the training shape, with a window and with GQA (the serving path
+    does not run it: prefill keeps the blockwise attention)."""
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        for case, t in (("train", 2048), ("serve_decode", 8),
+                        ("serve_prefill", 16)):
+            rows.append(check_topk(torch, case, t, 64, 1, dtype,
+                                   seed=len(rows)))
+        rows.append(check_topk(torch, "k2", 1000, 64, 2, dtype,
+                               seed=len(rows)))
+        for case, e, c, gated, act in (("train", 64, 40, False, "gelu"),
+                                       ("serve", 64, 8, False, "gelu"),
+                                       ("gated_silu", 8, 40, True, "silu"),
+                                       ("ragged_c100", 8, 100, False,
+                                        "gelu")):
+            rows.append(check_grouped(torch, case, e, c, 768, 3072, gated,
+                                      act, dtype, seed=10 * len(rows)))
+        for case, kv, window, lib in (("train", 8, 0, True),
+                                      ("window256", 8, 256, False),
+                                      ("gqa4", 2, 0, False)):
+            rows.append(check_flash(torch, case, 8, 1024, 8, kv, 96, window,
+                                    dtype, seed=10 * len(rows),
+                                    library=lib))
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: serving
 # ---------------------------------------------------------------------------
@@ -216,11 +402,16 @@ def requests(vocab: int, n: int, seed: int, prompt=(16, 384), gen=(32, 64)):
 
 
 def serve(cfg, reqs, *, seed=0, device="cuda", reset=None, **opts):
-    """Run ``reqs`` through a fresh ``Engine``; returns it, the requests
-    and the run's host clocks: wall seconds and the CPU seconds of the
-    thread that drives the engine (a CUDA sync spins, so CPU well below
-    wall means the thread waited off-core: for a core, or asleep). ``reset`` is called right before the engine
-    runs."""
+    """Run ``reqs`` through a fresh ``Engine``, one ``step`` at a time;
+    returns it, the requests, the run's host clocks and its MoE chunks.
+    The clocks: wall seconds and the CPU seconds of the thread that
+    drives the engine (a CUDA sync spins, so CPU well below wall means
+    the thread waited off-core: for a core, or asleep). The chunks: how
+    many times each MoE layer ran a chunk, summed over the steps that
+    ran the model (a decode runs one; a prefill of ``bucket`` tokens
+    runs ``pipeline_moe._resolve_partitions`` of them). ``reset`` is
+    called right before the engine runs."""
+    from repro_torch.core.pipeline_moe import _resolve_partitions
     from repro_torch.serve import Engine, EngineOptions
     engine = Engine(cfg, options=EngineOptions(device=device, **ENGINE,
                                                **opts), seed=seed)
@@ -228,14 +419,19 @@ def serve(cfg, reqs, *, seed=0, device="cuda", reset=None, **opts):
     if reset is not None:
         reset()
     wall, cpu = time.perf_counter(), time.thread_time()
-    engine.run_until_idle()
+    infos = []
+    while engine.has_work:
+        infos.append(engine.step())
     host = dict(wall_s=time.perf_counter() - wall,
                 thread_cpu_s=time.thread_time() - cpu)
+    chunks = sum(1 if i["kind"] == "decode" else
+                 _resolve_partitions(cfg, i["bucket"], "prefill")
+                 for i in infos if i.get("tokens"))
     for r, (_, m) in zip(handles, reqs):
         if len(r.output) != m:
             raise AssertionError(f"request {r.rid}: {len(r.output)} of "
                                  f"{m} tokens ({r.finish_reason})")
-    return engine, handles, host
+    return engine, handles, host, chunks
 
 
 def serve_sample(run: int, engine, host: dict) -> dict:
@@ -265,18 +461,24 @@ def profile_decode(torch, engine, steps: int = 10) -> dict:
     while any(r.state != RequestState.DECODE for r in batch):
         engine.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            if engine.step()["kind"] != "decode":
-                raise AssertionError("profiled step was not a decode")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    for _ in range(3):         # a trace now and then comes back empty
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                if engine.step()["kind"] != "decode":
+                    raise AssertionError("profiled step was not a decode")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+        if device_s > 0:
+            break
+        log("profile_decode: the profiler saw no device time; again")
+    else:
+        raise AssertionError("the profiler saw no device time in 3 traces")
     engine.run_until_idle()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_s = sum(e.self_device_time_total for e in kernels) / 1e6
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     return dict(
         steps=steps, wall_ms_per_step=wall / steps * 1e3,
@@ -286,6 +488,144 @@ def profile_decode(torch, engine, steps: int = 10) -> dict:
         top=[dict(name=e.key[:60],
                   ms_per_step=e.self_device_time_total / 1e3 / steps,
                   calls_per_step=e.count / steps) for e in top])
+
+
+# ---------------------------------------------------------------------------
+# phases 6-7: training
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+# per step of full-depth moe-gpt3-s (12 attention layers, 6 MoE layers,
+# n = 4 chunks): one flash launch per attention layer; one router and one
+# expert-FFN launch per chunk, and one more of each under S1-S4, whose
+# checkpoint recomputes the chunk in the backward pass
+LAUNCHES_PER_STEP = {
+    "none": {"flash_attention": 12, "topk_router": 24, "grouped_ffn": 24},
+    **{s: {"flash_attention": 12, "topk_router": 48, "grouped_ffn": 48}
+       for s in ("s1", "s2", "s3", "s4")}}
+CARD_VS_CPU_RTOL = 1e-4
+
+
+def train_config(strategy="none", num_layers=None, dtype="bfloat16"):
+    from repro_torch.configs import get_config
+    cfg = get_config("moe-gpt3-s")
+    return dataclasses.replace(
+        cfg, compute_dtype=dtype, num_layers=num_layers or cfg.num_layers,
+        moe=dataclasses.replace(cfg.moe, num_partitions=4,
+                                memory_reuse_strategy=strategy))
+
+
+def profile_step(torch, step_fn, state, batch) -> tuple:
+    """One train step under ``torch.profiler`` (another if the trace
+    comes back empty): (state, wall ms, device
+    kernel ms, device busy share, the 8 kernels that take the most
+    device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    for _ in range(3):         # a trace now and then comes back empty
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = step_fn(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev = sum(e.self_device_time_total for e in kernels) / 1e6
+        if dev > 0:
+            break
+        log("profile_step: the profiler saw no device time; again")
+    else:
+        raise AssertionError("the profiler saw no device time in 3 traces")
+    top = [dict(name=e.key[:60], ms=e.self_device_time_total / 1e3,
+                calls=e.count)
+           for e in sorted(kernels, key=lambda e: -e.self_device_time_total)
+           [:8]]
+    return state, wall * 1e3, dev * 1e3, dev / wall, top
+
+
+def train_phase(torch, build) -> tuple:
+    """Full-width moe-gpt3-s (bf16 compute, fp32 params, AdamW), batch
+    8 x 1024 from ``SyntheticTokens``, n = 4: 6 steps under NONE, then 2
+    under each of S1-S4, each run through ``runtime.train``. Returns the
+    per-strategy rows and the launches of the counted runs."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.runtime import (TrainOptions, init_state,
+                                     make_train_step, train)
+    from repro_torch.runtime.train_loop import _to_device
+    opts = TrainOptions(lr=1e-4, warmup=2, total_steps=20)
+    state = init_state(train_config(), opts, seed=0)
+    src = SyntheticTokens(train_config(), batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                          seed=0)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rows, launches = [], collections.Counter()
+    for strategy, steps in (("none", 6), ("s1", 2), ("s2", 2), ("s3", 2),
+                            ("s4", 2)):
+        cfg = train_config(strategy)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        state, hist = train(cfg, steps=steps, batch_source=src, opts=opts,
+                            state=state, adaptive=False)
+        torch.cuda.synchronize()
+        got = {k: build.LAUNCHES[k] for k in LAUNCHES_PER_STEP[strategy]}
+        want = {k: v * steps for k, v in LAUNCHES_PER_STEP[strategy].items()}
+        if got != want:
+            raise AssertionError(f"train {strategy}: launches {got}, "
+                                 f"expected {want}")
+        launches.update(got)
+        losses = [h["loss"] for h in hist]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"train {strategy}: losses {losses}")
+        peak = torch.cuda.max_memory_allocated()
+        step_s = sorted(h["step_time_s"] for h in hist[1:])
+        step_ms = step_s[len(step_s) // 2] * 1e3
+        state, wall_ms, dev_ms, busy, top = profile_step(
+            torch, make_train_step(cfg, opts), state,
+            _to_device(src.batch_at(steps), "cuda"))
+        row = dict(strategy=strategy, steps=steps, losses=losses,
+                   step_ms=step_ms, tokens_per_s=tokens / step_ms * 1e3,
+                   step_ms_all=[h["step_time_s"] * 1e3 for h in hist],
+                   max_memory_allocated=peak, profiled_wall_ms=wall_ms,
+                   profiled_device_ms=dev_ms, device_busy_share=busy,
+                   launches=got, top_kernels=top)
+        log("train " + json.dumps(row))
+        rows.append(row)
+    del state
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def card_vs_cpu(torch) -> dict:
+    """Three fp32 steps of 2-layer full-width moe-gpt3-s (batch 2 x 128,
+    S3) from the same weights, on the card (kernels) and on the CPU
+    (plain versions): the losses must agree within CARD_VS_CPU_RTOL. The
+    kernels and the plain versions differ by ~1e-6 in fp32; AdamW then
+    moves each parameter by up to lr whatever its gradient's size, so a
+    gradient element that is rounding noise can move either way on the
+    two devices, a second-order change of the loss."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import lm
+    from repro_torch.runtime import TrainOptions, init_state, train
+    cfg = train_config("s3", num_layers=2, dtype="float32")
+    opts = TrainOptions(lr=1e-3, warmup=0, total_steps=3)
+    src = SyntheticTokens(cfg, batch=2, seq=128, seed=1)
+    params = lm.init(cfg, 1, device="cpu")
+    on_card = init_state(cfg, opts, device="cuda", params=params)
+    on_cpu = init_state(cfg, opts, device="cpu", params=params)
+    _, card = train(cfg, steps=3, batch_source=src, opts=opts,
+                    state=on_card, adaptive=False)
+    _, cpu = train(cfg, steps=3, batch_source=src, opts=opts,
+                   state=on_cpu, adaptive=False)
+    a, b = [h["loss"] for h in card], [h["loss"] for h in cpu]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    row = dict(card=a, cpu=b, max_rel_diff=rel, rtol=CARD_VS_CPU_RTOL)
+    log("card-vs-cpu " + json.dumps(row))
+    if not rel <= CARD_VS_CPU_RTOL:
+        raise AssertionError(f"card and CPU losses differ by {rel}")
+    del on_card
+    torch.cuda.empty_cache()
+    return row
 
 
 def main() -> int:
@@ -315,8 +655,11 @@ def main() -> int:
     log(f"build: {json.dumps(secs)} ({time.perf_counter() - t0:.2f} s)")
 
     # -- 3. kernel vs plain -------------------------------------------------
-    rows = [check_paged_decode(torch, c) for c in kernel_cases(torch)]
+    kernel_rows = [dict(check_paged_decode(torch, c),
+                        kernel="paged_decode_attention", library_ms=None)
+                   for c in kernel_cases(torch)]
     torch.cuda.empty_cache()
+    kernel_rows += train_kernel_cases(torch)
 
     # -- 4. serve -----------------------------------------------------------
     cfg = serve_config()
@@ -328,10 +671,11 @@ def main() -> int:
         raise AssertionError(f"launcher finished {stats['requests_done']}")
     reqs = requests(cfg.vocab_size, 16, seed=0)
     torch.cuda.reset_peak_memory_stats()
-    engine, handles, host = serve(cfg, reqs, preempt="recompute",
-                                  num_pages=65,
-                            attn_kernel="auto", reset=build.reset_launches)
-    launches = build.LAUNCHES["paged_decode_attention"]
+    engine, handles, host, chunks = serve(
+        cfg, reqs, preempt="recompute", num_pages=65, attn_kernel="auto",
+        reset=build.reset_launches)
+    serve_launches = collections.Counter(build.LAUNCHES)
+    launches = serve_launches["paged_decode_attention"]
     s = engine.stats()
     n_attn = cfg.num_layers
     if s["attn_kernel"] != "kernel":
@@ -341,6 +685,12 @@ def main() -> int:
                              f"{s['decode_steps']} decode steps x {n_attn}")
     if s["preempt_recompute"] < 1:
         raise AssertionError("the small pool forced no preemption")
+    n_moe = cfg.num_periods * sum(r["moe"] for r in cfg.layer_roles())
+    for name in ("grouped_ffn", "topk_router"):
+        if serve_launches[name] != n_moe * chunks or not chunks:
+            raise AssertionError(
+                f"serving launched {name} {serve_launches[name]} times, "
+                f"expected {n_moe} MoE layers x {chunks} chunks")
     params = sum(t.numel() for t in leaves(engine.params))
     serve_row = dict(
         arch=cfg.name, params=params, dtype=cfg.compute_dtype,
@@ -350,10 +700,10 @@ def main() -> int:
         p50_decode_step_ms=s["p50_decode_step_s"] * 1e3,
         decode_steps=s["decode_steps"], prefill_steps=s["prefill_steps"],
         preempt_recompute=s["preempt_recompute"], kernel_launches=launches,
+        launches=dict(serve_launches),
         max_memory_allocated=torch.cuda.max_memory_allocated())
     log("serve " + json.dumps(serve_row))
     log("serve-sample " + json.dumps(serve_sample(1, engine, host)))
-    kernel_tokens = [list(r.output) for r in handles]
     log("decode-profile " + json.dumps(profile_decode(torch, engine)))
     del engine, handles
     torch.cuda.empty_cache()
@@ -364,7 +714,7 @@ def main() -> int:
                      gen=(16, 32))
     outs = {}
     for kern in ("kernel", "gather"):
-        eng, hs, _ = serve(cfg2, small, attn_kernel=kern,
+        eng, hs, _, _ = serve(cfg2, small, attn_kernel=kern,
                            preempt="recompute")
         outs[kern] = [list(r.output) for r in hs]
         del eng, hs
@@ -373,45 +723,55 @@ def main() -> int:
                              "the kernel and gather decode paths")
     log(f"kernel-vs-gather fp32 2 layers: {sum(map(len, outs['kernel']))} "
         f"greedy tokens equal")
-    tokens = {}
-    for run, kern in enumerate(("gather", "gather", "kernel"), start=2):
-        eng, hs, host = serve(cfg, reqs, preempt="recompute", num_pages=65,
-                              attn_kernel=kern)
-        log("serve-sample " + json.dumps(serve_sample(run, eng, host)))
-        tokens.setdefault(kern, [list(r.output) for r in hs])
-        del eng, hs
-        torch.cuda.empty_cache()
-    total = sum(map(len, kernel_tokens))
-    for name, other in (("gather", tokens["gather"]),
-                        ("kernel, second run", tokens["kernel"])):
-        same = sum(a == b for ka, ga in zip(kernel_tokens, other)
-                   for a, b in zip(ka, ga))
-        log(f"kernel-vs-{name} bf16 full depth: {same}/{total} tokens "
-            f"agree ({same / total:.4f}), not held")
+    torch.cuda.empty_cache()
 
-    # -- 6. kernels line ----------------------------------------------------
-    head = next(r for r in rows if r["case"] == "engine"
-                and r["dtype"] == "bfloat16" and r["window"] == 0)
-    log("library_ms: null — no single PyTorch call computes attention "
-        "over a page table (scaled_dot_product_attention needs the pages "
-        "gathered first, which is the plain version)")
-    print(json.dumps({"kernels": [{
-        "name": "paged_decode_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/paged_attention/csrc/"
-                  "paged_decode.cu",
-        "replaces": "src/repro/kernels/paged_attention/kernel.py:69",
-        "launches": launches,
-        "max_abs_err": head["max_abs_err"],
-        "max_abs_err_float32": max(r["max_abs_err"] for r in rows
-                                   if r["dtype"] == "float32"),
-        "max_abs_err_bfloat16": max(r["max_abs_err"] for r in rows
-                                    if r["dtype"] == "bfloat16"),
-        "tol": head["tol"],
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": None}]}), flush=True)
+    # -- 6. train -----------------------------------------------------------
+    train_rows, train_launches = train_phase(torch, build)
 
-    # -- 7. result ----------------------------------------------------------
+    # -- 7. card vs CPU -----------------------------------------------------
+    card_vs_cpu(torch)
+
+    # -- 8. kernels line ----------------------------------------------------
+    def head(kernel, case="train", dtype="bfloat16"):
+        return next(r for r in kernel_rows if r["kernel"] == kernel
+                    and r["case"] == case and r["dtype"] == dtype
+                    and not r.get("window"))
+
+    def entry(name, src, replaces, row, **extra):
+        mine = [r for r in kernel_rows if r["kernel"] == row["kernel"]]
+        return {"name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/" + src,
+                "replaces": "src/repro/kernels/" + replaces,
+                "launches": serve_launches[name] + train_launches[name],
+                "max_abs_err": row["max_abs_err"], "tol": row["tol"],
+                "max_abs_err_float32": max(r["max_abs_err"] for r in mine
+                                           if r["dtype"] == "float32"),
+                "max_abs_err_bfloat16": max(r["max_abs_err"] for r in mine
+                                            if r["dtype"] == "bfloat16"),
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"], **extra}
+
+    log("library_ms: null for paged_decode_attention (no single PyTorch "
+        "call attends over a page table), topk_router (softmax then "
+        "torch.topk is two calls, and topk promises no tie order) and "
+        "grouped_ffn (no single call runs a per-expert GEMM -> activation "
+        "-> GEMM); flash_attention's is scaled_dot_product_attention "
+        "(is_causal), a yardstick the port never calls")
+    print(json.dumps({"kernels": [
+        entry("paged_decode_attention", "paged_attention/csrc/"
+              "paged_decode.cu", "paged_attention/kernel.py:69",
+              head("paged_decode_attention", "engine")),
+        entry("grouped_ffn", "grouped_ffn/csrc/grouped_ffn.cu",
+              "grouped_ffn/kernel.py:61", head("grouped_ffn")),
+        entry("topk_router", "topk_router/csrc/topk_router.cu",
+              "topk_router/kernel.py:42", head("topk_router", "train",
+                                               "float32")),
+        entry("flash_attention", "flash_attention/csrc/flash_attention.cu",
+              "flash_attention/kernel.py:67", head("flash_attention")),
+    ]}), flush=True)
+
+    # -- 9. result ----------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

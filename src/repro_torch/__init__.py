@@ -9,10 +9,13 @@ mirrors ``repro``'s, so each module's counterpart is found by path:
 ``models/``           spec-tree params, paged KV pools, blocks, the LM
 ``models/layers/``    norm, embedding, dense FFN, attention
 ``moe/``              router, dispatch/combine, expert FFNs, the layer
-``core/``             the pipelined (n-chunk) MoE forward
+``core/``             the pipelined (n-chunk) MoE and its memory-reuse
+                      strategies S1-S4
 ``kernels/``          hand-written CUDA kernels, their builder, wrappers
                       and plain PyTorch versions
+``optim/``, ``data/`` AdamW and the LR schedule; synthetic tokens
+``runtime/``          the training step and loop
 ``serve/``            continuous-batching engine over paged KV
-``launch/``           command-line entry points
+``launch/``           command-line entry points (train, serve)
 ``convert.py``        JAX parameter tree (as numpy) -> the port's params
 """

@@ -1,13 +1,17 @@
-"""MPipeMoE's micro-batch pipelined MoE, forward only, one device.
+"""MPipeMoE's micro-batch pipelined MoE on one device.
 
 The counterpart of ``repro.core.pipeline_moe`` with ``ep_size == 1``:
 the token batch is split into ``n`` chunks along the token axis, and
-each chunk is routed, dispatched into an ``[E, C, M]`` buffer, run
-through the expert FFNs and combined, with the capacity ``C`` computed
-from the chunk's token count. With one device there are no All-to-Alls;
-the paper's overlap of chunk i+1's communication under chunk i's expert
-GEMMs, its memory-reuse strategies S1–S4 and the expert-parallel layouts
-come with ROADMAP.md's 'Training' and 'Expert parallelism' slices.
+each chunk is routed, dispatched into an ``[E, C, M]`` buffer (the
+paper's ``T_DI``), run through the expert FFNs and combined, with the
+capacity ``C`` computed from the chunk's token count. In ``mode="train"``
+each chunk runs under the config's memory-reuse strategy
+(``core.strategies``); ``"adaptive"`` runs as ``Strategy.NONE`` and
+``num_partitions`` 0 as n = 4, as in the JAX package when the config
+still holds those placeholders. With one device there are no All-to-
+Alls; the overlap of chunk i+1's communication under chunk i's expert
+GEMMs and the expert-parallel layouts come with ROADMAP.md's 'Expert
+parallelism' slice.
 """
 from __future__ import annotations
 
@@ -17,6 +21,9 @@ from typing import Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.strategies import restore_t_di, wrap_chunk
+from repro_torch.core.types import Strategy
+from repro_torch.device import dtype_of
 from repro_torch.moe import dispatch as D
 from repro_torch.moe import experts as E
 from repro_torch.moe import router as R
@@ -40,13 +47,25 @@ def _resolve_partitions(cfg: ArchConfig, t_local: int, mode: str) -> int:
     return n
 
 
-def _chunk_fn(params, chunk: torch.Tensor, *, cfg: ArchConfig, cap: int):
-    """route -> dispatch -> expert FFN -> combine (one device)."""
+def strategy_of(cfg: ArchConfig) -> Strategy:
+    """The config's memory-reuse strategy; ``"adaptive"`` runs as
+    ``NONE`` until the adaptive slice resolves it."""
+    s = cfg.moe.memory_reuse_strategy
+    return Strategy.NONE if s == "adaptive" else Strategy(s)
+
+
+def _chunk_fn(params, chunk: torch.Tensor, stash=None, *, cfg: ArchConfig,
+              cap: int):
+    """route -> dispatch -> expert FFN -> combine (one device). ``stash``
+    holds ``T_DI`` between the forward pass and its recompute under
+    S1/S3 (``strategies.restore_t_di``)."""
     m = cfg.moe
     t = chunk.shape[0]
     probs, eidx, aux = R.route(params["router"], chunk, cfg)
     dest, _ = D.dispatch_plan(eidx, m.num_experts, cap)
-    buf = D.dispatch(chunk, dest, m.num_experts, cap)      # [E, cap, M]
+    buf = restore_t_di(                                    # [E, cap, M]
+        chunk, dest, lambda: D.dispatch(chunk, dest, m.num_experts, cap),
+        stash)
     eout = E.apply_grouped(params["experts"], buf, cfg)
     out = D.combine(eout, dest, probs, t)
     if m.num_shared_experts:
@@ -57,20 +76,29 @@ def _chunk_fn(params, chunk: torch.Tensor, *, cfg: ArchConfig, cap: int):
 def pipelined_moe(params, tokens: torch.Tensor, *, cfg: ArchConfig,
                   mode: str = "prefill") -> Tuple[torch.Tensor, dict]:
     """tokens ``[T, M]`` -> (``[T, M]``, aux losses averaged over
-    chunks). ``mode="decode"`` runs one chunk, as in the JAX package."""
-    if mode == "train":
-        raise NotImplementedError(
-            "the training forward (strategies S1-S4) is ROADMAP.md's "
-            "'Training' slice")
+    chunks). ``mode="decode"`` runs one chunk, as in the JAX package;
+    ``mode="train"`` wraps each chunk in the config's strategy.
+
+    The expert weights are cast to the compute dtype once, before the
+    chunk loop (as the JAX package gathers them once outside it): a cast
+    inside a chunk would keep one copy per chunk alive for backward."""
     m = cfg.moe
+    dt = dtype_of(cfg.compute_dtype)
+    params = dict(params, experts={k: v.to(dt) for k, v in
+                                   params["experts"].items()})
     t_local = tokens.shape[0]
     n = _resolve_partitions(cfg, t_local, mode)
     chunk_t = t_local // n
     cap = capacity_for(chunk_t, m.top_k, m.capacity_factor, m.num_experts)
+
+    def chunk_fn(p, c, stash=None):
+        return _chunk_fn(p, c, stash, cfg=cfg, cap=cap)
+
+    if mode == "train":
+        chunk_fn = wrap_chunk(chunk_fn, strategy_of(cfg))
     outs, auxes = [], []
     for i in range(n):
-        o, a = _chunk_fn(params, tokens[i * chunk_t:(i + 1) * chunk_t],
-                         cfg=cfg, cap=cap)
+        o, a = chunk_fn(params, tokens[i * chunk_t:(i + 1) * chunk_t])
         outs.append(o)
         auxes.append(a)
     out = torch.cat(outs, dim=0) if n > 1 else outs[0]

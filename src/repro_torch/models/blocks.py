@@ -38,7 +38,7 @@ def block_apply(params, x: torch.Tensor, *, cfg: ArchConfig, role: Dict,
     mix, new_cache = attention.apply(params["mixer"], h, cfg=cfg,
                                      positions=positions,
                                      is_global=role["global_attn"],
-                                     cache=cache)
+                                     mode=mode, cache=cache)
     x = x + mix
     aux = {}
     if role["moe"]:

@@ -12,6 +12,13 @@ The counterpart of the paged half of ``repro.models.layers.attention``:
   decode through the hand-written CUDA kernel
   (``repro_torch.kernels.paged_attention``) when ``attn_kernel ==
   "kernel"``, else through ``gather_pages`` + ``decode_attention``.
+  Without a cache (``mode="train"``) it runs causal attention through
+  the hand-written ``flash_attention`` kernel
+  (``repro_torch.kernels.flash_attention``; its plain version on the
+  CPU), where the JAX package runs its jnp ``flash_attention``: the two
+  compute the same function. Chunked prefill keeps the blockwise
+  ``flash_attention`` below, which takes ``q_offset``; the kernel does
+  not.
 
 Scores, softmax and the PV sum are fp32 whatever the compute dtype (the
 JAX package's ``preferred_element_type=float32``); ``NEG_INF`` is only
@@ -165,10 +172,22 @@ def _check_positional(cfg: ArchConfig):
             "architectures' slice; the port serves learned positions")
 
 
+def _apply_train(params, x, *, cfg: ArchConfig, window: int):
+    """Paged-free causal self-attention: projections, the flash kernel
+    (GQA through its ``h // group``, no repeat), the output projection."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    q, k, v = _proj_qkv(params, x, cfg)
+    out = fa(q, k, v, causal=True, window=window)
+    return torch.einsum("bshe,hed->bsd", out, params["w_o"].to(x.dtype))
+
+
 def apply(params, x, *, cfg: ArchConfig, positions, is_global: bool = True,
-          cache: Optional[dict] = None):
-    """Self-attention over a paged KV pool (``repro_torch.serve``).
-    Returns (out, new_cache).
+          mode: str = "prefill", cache: Optional[dict] = None):
+    """Self-attention. Returns (out, new_cache).
+
+    ``mode="train"`` with no cache: causal attention over ``x`` through
+    the flash kernel; ``new_cache`` is None. Otherwise, attention over a
+    paged KV pool (``repro_torch.serve``):
 
     ``cache``: ``k_pool``/``v_pool`` ``[P, ps, Kv, D]``, ``page_table``
     ``[B, NP]``, ``lens`` ``[B]`` (tokens already cached per sequence),
@@ -179,16 +198,21 @@ def apply(params, x, *, cfg: ArchConfig, positions, is_global: bool = True,
 
     Decode (S == 1) runs every slot with its own cache length; chunked
     prefill (S > 1) requires B == 1 and attends the chunk against the
-    gathered pages with ``q_offset = lens[0]``. The paged-free training
-    path comes with ROADMAP.md's 'Training' slice.
+    gathered pages with ``q_offset = lens[0]``.
     """
-    if cache is None or "k_pool" not in cache:
-        raise NotImplementedError(
-            "the port's attention runs over paged caches only; the "
-            "paged-free training path is ROADMAP.md's 'Training' slice")
     _check_positional(cfg)
     a = cfg.attn
     window = 0 if (is_global and a.global_period > 1) else a.window
+    if cache is None:
+        if mode != "train":
+            raise NotImplementedError(
+                "dense (non-paged) KV caches come with ROADMAP.md's later "
+                "slices; the port runs train without a cache and serves "
+                "over paged pools")
+        return _apply_train(params, x, cfg=cfg, window=window), None
+    if "k_pool" not in cache:
+        raise NotImplementedError(
+            "the port's serving attention runs over paged caches only")
     s = x.shape[1]
 
     q, k, v = _proj_qkv(params, x, cfg)

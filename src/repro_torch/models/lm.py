@@ -1,5 +1,5 @@
-"""Decoder-only language model over paged KV: init, forward, and the two
-serving steps, as the paged half of ``repro.models.lm``.
+"""Decoder-only language model: init, the training forward and loss, and
+the paged forward with its two serving steps, as ``repro.models.lm``.
 
 Depth is a Python loop over the layer periods (JAX scans a stacked
 ``periods`` axis). Parameters keep the JAX package's layouts, with the
@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import dtype_of, resolve_device
@@ -64,16 +65,71 @@ def compute_params(params, cfg: ArchConfig):
                             keep=lambda path: "router" in path)
 
 
-def forward(params, tokens: torch.Tensor, cfg: ArchConfig, *,
-            mode: str, cache: dict):
-    """Returns (logits, aux, new_cache) over a paged ``cache``:
-    ``layers`` (the per-period pools), ``page_table``, ``lens``,
-    ``attn_kernel`` (``"kernel"`` or ``"gather"``), and optionally
-    ``write_valid``, ``write_sink``."""
-    if cache is None or "page_table" not in cache:
+def _remat_wrap(fn, cfg: ArchConfig):
+    """Layer-level rematerialisation of a period body, as the JAX
+    package's ``_remat_wrap``: ``"nothing"`` keeps every activation,
+    ``"full"`` recomputes the period in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant)."""
+    if cfg.remat_policy == "nothing":
+        return fn
+    if cfg.remat_policy == "full":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    if cfg.remat_policy == "dots":
         raise NotImplementedError(
-            "the port's forward runs over paged caches; the training "
-            "forward is ROADMAP.md's 'Training' slice")
+            "remat_policy 'dots' (save the matmul outputs only) is not "
+            "ported yet (ROADMAP.md Queue 1, 'Remat policies')")
+    raise ValueError(cfg.remat_policy)
+
+
+def _forward_train(params, tokens: torch.Tensor, cfg: ArchConfig):
+    dt = dtype_of(cfg.compute_dtype)
+    x = embedding.embed(params["embed"], tokens, cfg, dtype=dt)
+    b, s = tokens.shape
+    if cfg.positional == "learned":
+        x = x + params["embed"]["pos"][:s].to(dt)[None]
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    roles = cfg.layer_roles()
+
+    def period(x, aux_loss, z_loss, pparams):
+        for i, role in enumerate(roles):
+            x, a, _ = blocks.block_apply(pparams[f"l{i}"], x, cfg=cfg,
+                                         role=role, positions=positions,
+                                         mode="train")
+            if a:
+                aux_loss = aux_loss + a["aux_loss"]
+                z_loss = z_loss + a["z_loss"]
+        return x, aux_loss, z_loss
+
+    body = _remat_wrap(period, cfg)
+    aux_loss = torch.zeros((), device=x.device)
+    z_loss = torch.zeros((), device=x.device)
+    for pparams in params["periods"]:
+        x, aux_loss, z_loss = body(x, aux_loss, z_loss, pparams)
+    x = norm.apply(params["final_norm"], x, cfg.norm)
+    logits = embedding.logits(params["embed"], x, cfg)
+    return logits, {"aux_loss": aux_loss, "z_loss": z_loss}, None
+
+
+def forward(params, tokens: torch.Tensor, cfg: ArchConfig, *,
+            mode: str, cache: Optional[dict] = None):
+    """Returns (logits, aux, new_cache).
+
+    ``mode="train"`` without a cache: the whole sequence at learned
+    positions 0..S-1, each period under ``cfg.remat_policy``, each MoE
+    chunk under the config's strategy; ``new_cache`` is None.
+
+    Otherwise, over a paged ``cache``: ``layers`` (the per-period
+    pools), ``page_table``, ``lens``, ``attn_kernel`` (``"kernel"`` or
+    ``"gather"``), and optionally ``write_valid``, ``write_sink``."""
+    if cache is None:
+        if mode != "train":
+            raise NotImplementedError(
+                "dense (non-paged) KV caches are not ported; the port "
+                "trains without a cache and serves over paged pools")
+        return _forward_train(params, tokens, cfg)
+    if "page_table" not in cache:
+        raise NotImplementedError(
+            "the port's serving forward runs over paged caches only")
     dt = dtype_of(cfg.compute_dtype)
     lens = cache["lens"]
 
@@ -112,6 +168,34 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig, *,
     x = norm.apply(params["final_norm"], x, cfg.norm)
     logits = embedding.logits(params["embed"], x, cfg)
     return logits, aux, {"layers": new_layers}
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
+    """Mean next-token NLL over labels >= 0, in fp32, as the JAX
+    package's ``cross_entropy`` (its masked reduction picks the label
+    logit; a gather picks the same value without a ``[B, S, V]`` mask)."""
+    valid = labels >= 0
+    lab = torch.where(valid, labels, 0).long()
+    x = logits.float()
+    m = x.amax(dim=-1, keepdim=True).detach()
+    shifted = x - m
+    lse = torch.log(torch.exp(shifted).sum(dim=-1))
+    label_logit = shifted.gather(-1, lab[..., None])[..., 0]
+    nll = lse - label_logit
+    denom = torch.clamp(valid.sum(), min=1)
+    return torch.where(valid, nll, 0.0).sum() / denom
+
+
+def loss_fn(params, batch: dict, cfg: ArchConfig):
+    """``batch``: ``tokens`` and ``labels`` ``[B, S]``. Returns (loss,
+    metrics ``ce``, ``aux_loss``, ``z_loss``, ``loss``)."""
+    logits, aux, _ = forward(params, batch["tokens"], cfg, mode="train")
+    labels = batch["labels"]
+    logits = logits[:, -labels.shape[1]:]
+    ce = cross_entropy(logits, labels)
+    loss = ce + aux["aux_loss"] + aux["z_loss"]
+    return loss, {"ce": ce, "aux_loss": aux["aux_loss"],
+                  "z_loss": aux["z_loss"], "loss": loss}
 
 
 def init_paged_cache(cfg: ArchConfig, num_pages: int, page_size: int,

@@ -1,15 +1,18 @@
-"""Expert FFN compute, as in ``repro.moe.experts``: grouped 2-GEMM
-(optionally gated) as batched matmuls over the ``[E, C, M]`` buffer.
+"""Expert FFN compute, as in ``repro.moe.experts``: the grouped 2-GEMM
+(optionally gated) over the ``[E, C, M]`` buffer.
 
-The JAX package computes this outside any Pallas kernel on the serving
-path; the ``grouped_ffn`` kernel comes with ROADMAP.md's 'Training'
-slice.
+``apply_grouped`` runs through the hand-written ``grouped_ffn`` kernel on
+the card (its plain version on the CPU): the function of the JAX
+package's ``apply_grouped(use_kernel=True)``, whose jnp branch computes
+the same thing (``T_M`` is never stored; the backward rebuilds it).
+The shared experts stay plain products.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.grouped_ffn import grouped_ffn
 from repro_torch.models.layers.ffn import ACTS
 from repro_torch.models.module import Spec
 
@@ -41,15 +44,13 @@ def shared_specs(cfg: ArchConfig):
 
 
 def apply_grouped(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """x ``[E, C, M]`` -> ``[E, C, M]``."""
-    act = ACTS[cfg.ffn_act]
+    """x ``[E, C, M]`` -> ``[E, C, M]``. The weights are cast to x's
+    dtype here unless the caller cast them already (``pipelined_moe``
+    does, once per layer)."""
     dt = x.dtype
-    h = torch.bmm(x, params["w_up"].to(dt))
-    if cfg.gated_ffn:
-        h = act(torch.bmm(x, params["w_gate"].to(dt))) * h
-    else:
-        h = act(h)
-    return torch.bmm(h, params["w_down"].to(dt))
+    w_gate = params["w_gate"].to(dt) if cfg.gated_ffn else None
+    return grouped_ffn(x, params["w_up"].to(dt), w_gate,
+                       params["w_down"].to(dt), cfg.ffn_act)
 
 
 def apply_shared(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
