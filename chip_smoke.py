@@ -14,15 +14,18 @@ order; any failure ends the run with a non-zero exit and no result line:
    and bf16, each case timed (device time from ``torch.profiler``) beside
    its plain version, its bound and, where one PyTorch call computes the
    same function, that call: paged decode at the serving engine's shapes
-   and one memory-bound GQA shape, with and without a window; the top-k
-   router at its training and serving shapes (indices equal,
+   and one memory-bound GQA shape, with and without a window; the MLA
+   latent decode at DeepSeek-V2-Lite's engine shape (8 slots, 32 pages of
+   16) and at 32 slots x 4096 tokens; the top-k router at its training
+   and serving shapes and at DeepSeek-V2-Lite's k 6 (indices equal,
    probabilities within 1e-6); the expert FFN at the training chunk and
-   the serving capacity, gated silu and a ragged C; flash attention at
-   the training shape, with a window and with GQA. Limits: 1e-5 in fp32;
-   in bf16 each kernel's ``ref.tolerance``: one rounding of the largest
-   output for paged decode and the expert FFN, and for flash attention a
-   limit per element (one output rounding plus the bf16 rounding of its
-   probabilities, weighted by |v|);
+   the serving capacity, gated silu, a ragged C and DeepSeek-V2-Lite's
+   M 2048; flash attention at the training shape, with a window and with
+   GQA. Limits: 1e-5 in fp32 (the MLA kernel: ``ref.tolerance_mla``, the
+   same in both dtypes); in bf16 each kernel's ``ref.tolerance``: one
+   rounding of the largest output for paged decode and the expert FFN,
+   and for flash attention a limit per element (one output rounding plus
+   the bf16 rounding of its probabilities, weighted by |v|);
 4. serve: full-width moe-gpt3-s in bf16 through the launcher's ``main``
    and then through ``Engine`` with 16 seeded requests and a page pool
    small enough to force recompute preemption; the decode kernel must
@@ -32,15 +35,23 @@ order; any failure ends the run with a non-zero exit and no result line:
    ``torch.profiler`` trace of 10 full-batch decode steps;
 5. kernel vs gather: equal greedy decode tokens at full width, 2
    layers, fp32;
-6. train: full-width moe-gpt3-s (bf16 compute, fp32 params, AdamW),
+6. serve DeepSeek-V2-Lite: full width and depth (27 layers, 16.2 B
+   parameters) in bf16 through the launcher's ``main``, then through
+   ``Engine`` with 8 seeded requests: memory right after the engine's
+   init under 40 GB, the MLA kernel launched once per layer of every
+   decode step, router and expert FFN once per layer of every MoE chunk,
+   every request complete; a 10-step decode profile;
+7. kernel vs gather, DeepSeek-V2-Lite: equal greedy tokens at full width,
+   2 layers, fp32;
+8. train: full-width moe-gpt3-s (bf16 compute, fp32 params, AdamW),
    batch 8 x 1024, n = 4, through ``runtime.train``: 6 steps under NONE,
    2 under each of S1-S4; every loss finite and each kernel launched
    exactly ``LAUNCHES_PER_STEP`` times a step; step ms, tokens/s, peak
    memory and a profiled step's device-busy share per strategy;
-7. card vs CPU: 3 fp32 steps of 2-layer full-width moe-gpt3-s on the
+9. card vs CPU: 3 fp32 steps of 2-layer full-width moe-gpt3-s on the
    card (kernels) and on the CPU (plain versions), losses within
    ``CARD_VS_CPU_RTOL``;
-8. the ``kernels`` JSON line; 9. the ``ok`` JSON line, last.
+10. the ``kernels`` JSON line; 11. the ``ok`` JSON line, last.
 
 Exits non-zero without CUDA, and in a directory holding this file alone.
 """
@@ -213,6 +224,96 @@ def check_paged_decode(torch, case):
     return row
 
 
+def mla_case(torch, name, *, dtype, b, np_, lens, extra, seed, h=16,
+             r=512, e=64, ps=16):
+    """Latent pools, page table and queries as the serving allocator lays
+    them out: a garbage sink at page 0, ``pages_for(lens + 1) + extra``
+    distinct pages a slot (the extra ones and the positions past ``lens``
+    hold stale garbage), unallocated entries at the sink. ``lens`` is the
+    slot's decode position: keys ``t <= lens`` are visible."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    owned = [-(-(n + 1) // ps) + x for n, x in zip(lens, extra)]
+    assert all(o <= np_ for o in owned)
+    pages = 1 + sum(owned)
+    ckv = torch.randn((pages, ps, r), generator=gen, device="cuda")
+    kr = torch.randn((pages, ps, e), generator=gen, device="cuda")
+    pt = torch.zeros((b, np_), dtype=torch.int32)
+    nxt = 1
+    for i, (n, o) in enumerate(zip(lens, owned)):
+        pt[i, :o] = torch.arange(nxt, nxt + o)
+        used = -(-(n + 1) // ps)
+        for pool in (ckv, kr):
+            pool[nxt + used:nxt + o] = GARBAGE
+            pool[nxt + used - 1, n + 1 - (used - 1) * ps:] = GARBAGE
+        nxt += o
+    ckv[0] = GARBAGE
+    kr[0] = GARBAGE
+    q_abs = torch.randn((b, 1, h, r), generator=gen, device="cuda")
+    q_rope = torch.randn((b, 1, h, e), generator=gen, device="cuda")
+    return dict(name=name, dtype=dtype, q_abs=q_abs.to(dt),
+                q_rope=q_rope.to(dt), ckv=ckv.to(dt), kr=kr.to(dt),
+                page_table=pt.cuda(), scale=(128 + e) ** -0.5,
+                lens=torch.tensor(lens, dtype=torch.int32, device="cuda"))
+
+
+def mla_cases(torch) -> list:
+    """DeepSeek-V2-Lite's decode shape in the engine (8 slots, 32 pages of
+    16, positions spread over 0-511, grown-ahead pages) and a long context
+    (32 slots x 4096 positions), each in bf16 and fp32."""
+    eng = dict(b=8, np_=32, lens=[0, 511, 37, 200, 15, 16, 300, 454],
+               extra=[2, 0, 1, 0, 1, 3, 0, 1])
+    long = dict(b=32, np_=256, lens=[4095] * 32, extra=[0] * 32)
+    cases = []
+    for dtype in ("bfloat16", "float32"):
+        cases.append(mla_case(torch, "engine", dtype=dtype,
+                              seed=40 + len(cases), **eng))
+        cases.append(mla_case(torch, "long_4k", dtype=dtype,
+                              seed=40 + len(cases), **long))
+    return cases
+
+
+def check_mla(torch, case) -> dict:
+    """The MLA kernel against its plain version within
+    ``ref.tolerance_mla``, timed. Bound: the visible latent and rotary
+    rows, q and the fp32 output over HBM rate, against the score products
+    at the dtype's peak plus the fp32 PV sum at the fp32 peak."""
+    from repro_torch.kernels.paged_attention import (paged_mla_decode,
+                                                     paged_mla_decode_ref)
+    from repro_torch.kernels.paged_attention.ref import tolerance_mla
+    qa, qr, cp, kp = case["q_abs"], case["q_rope"], case["ckv"], case["kr"]
+    pt, lens, scale = case["page_table"], case["lens"], case["scale"]
+    b, _, h, r = qa.shape
+    e = qr.shape[-1]
+
+    def kernel():
+        return paged_mla_decode(qa, qr, cp, kp, pt, lens, scale=scale)
+
+    def plain():
+        return paged_mla_decode_ref(qa[:, 0], qr[:, 0], cp, kp, pt, lens,
+                                    scale=scale)
+
+    out = kernel()
+    ref = plain()[:, None]
+    torch.cuda.synchronize()
+    tol = tolerance_mla(qa[:, 0], qr[:, 0], cp, kp, pt, lens, scale=scale)
+    t_cap = pt.shape[1] * cp.shape[1]
+    toks = sum(min(n, t_cap - 1) + 1 for n in lens.tolist())
+    item = qa.element_size()
+    nbytes = (toks * (r + e) * item + b * h * (r + e) * item + b * h * r * 4
+              + pt.numel() * 4 + b * 4)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = (2 * toks * h * (r + e) / PEAK_FLOPS[case["dtype"]]
+             + 2 * toks * h * r / PEAK_FLOPS["float32"]) * 1e3
+    bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return kernel_row(
+        "paged_mla_decode", case["name"], case["dtype"], (out - ref).abs(),
+        tol, out, kernel, plain, bound, iters=50,
+        shape=dict(B=b, H=h, R=r, E=e, ps=cp.shape[1], NP=pt.shape[1],
+                   visible_tokens=toks),
+        max_abs_ref=ref.abs().max().item())
+
+
 def roof(nbytes: float, flops: float, dtype: str) -> tuple:
     """(bound ms, "bytes" or "operations"): the larger of the bytes over
     the HBM rate and the operations over the dtype's peak rate."""
@@ -353,8 +454,10 @@ def train_kernel_cases(torch) -> list:
     """Each training-slice kernel against its plain version, fp32 and
     bf16: the router at its training chunk (2048 tokens, 64 experts) and
     its serving shapes (8 decode slots; a 64-token prefill chunk in 4
-    pieces); the expert FFN at moe-gpt3-s's training chunk (C 40) and
-    decode/prefill capacity (C 8), gated silu and a ragged C; attention
+    pieces), and at DeepSeek-V2-Lite's top-6; the expert FFN at
+    moe-gpt3-s's training chunk (C 40) and decode/prefill capacity (C 8),
+    gated silu, a ragged C and DeepSeek-V2-Lite's gated silu experts (E
+    64, C 8, M 2048, H 1408); attention
     at the training shape, with a window and with GQA (the serving path
     does not run it: prefill keeps the blockwise attention)."""
     rows = []
@@ -365,6 +468,10 @@ def train_kernel_cases(torch) -> list:
                                    seed=len(rows)))
         rows.append(check_topk(torch, "k2", 1000, 64, 2, dtype,
                                seed=len(rows)))
+        for case, t in (("deepseek_decode", 8), ("deepseek_prefill", 16),
+                        ("deepseek_t64", 64)):
+            rows.append(check_topk(torch, case, t, 64, 6, dtype,
+                                   seed=len(rows)))
         for case, e, c, gated, act in (("train", 64, 40, False, "gelu"),
                                        ("serve", 64, 8, False, "gelu"),
                                        ("gated_silu", 8, 40, True, "silu"),
@@ -372,6 +479,9 @@ def train_kernel_cases(torch) -> list:
                                         "gelu")):
             rows.append(check_grouped(torch, case, e, c, 768, 3072, gated,
                                       act, dtype, seed=10 * len(rows)))
+        # DeepSeek-V2-Lite's experts at the decode/prefill capacity
+        rows.append(check_grouped(torch, "deepseek", 64, 8, 2048, 1408, True,
+                                  "silu", dtype, seed=10 * len(rows)))
         for case, kv, window, lib in (("train", 8, 0, True),
                                       ("window256", 8, 256, False),
                                       ("gqa4", 2, 0, False)):
@@ -386,9 +496,9 @@ def train_kernel_cases(torch) -> list:
 # phases 4-5: serving
 # ---------------------------------------------------------------------------
 
-def serve_config(num_layers=None, dtype="bfloat16"):
+def serve_config(num_layers=None, dtype="bfloat16", arch="moe-gpt3-s"):
     from repro_torch.configs import get_config
-    cfg = get_config("moe-gpt3-s")
+    cfg = get_config(arch)
     cfg = dataclasses.replace(
         cfg, compute_dtype=dtype,
         num_layers=num_layers or cfg.num_layers,
@@ -401,9 +511,11 @@ def requests(vocab: int, n: int, seed: int, prompt=(16, 384), gen=(32, 64)):
     return synthetic_requests(n, vocab, prompt, gen, seed)
 
 
-def serve(cfg, reqs, *, seed=0, device="cuda", reset=None, **opts):
-    """Run ``reqs`` through a fresh ``Engine``, one ``step`` at a time;
-    returns it, the requests, the run's host clocks and its MoE chunks.
+def serve(cfg, reqs, *, seed=0, device="cuda", reset=None, engine=None,
+          **opts):
+    """Run ``reqs`` through ``engine`` (default: a fresh ``Engine``), one
+    ``step`` at a time; returns it, the requests, the run's host clocks
+    and its MoE chunks.
     The clocks: wall seconds and the CPU seconds of the thread that
     drives the engine (a CUDA sync spins, so CPU well below wall means
     the thread waited off-core: for a core, or asleep). The chunks: how
@@ -413,8 +525,9 @@ def serve(cfg, reqs, *, seed=0, device="cuda", reset=None, **opts):
     called right before the engine runs."""
     from repro_torch.core.pipeline_moe import _resolve_partitions
     from repro_torch.serve import Engine, EngineOptions
-    engine = Engine(cfg, options=EngineOptions(device=device, **ENGINE,
-                                               **opts), seed=seed)
+    if engine is None:
+        engine = Engine(cfg, options=EngineOptions(device=device, **ENGINE,
+                                                   **opts), seed=seed)
     handles = [engine.submit(p, max_new_tokens=m) for p, m in reqs]
     if reset is not None:
         reset()
@@ -491,7 +604,116 @@ def profile_decode(torch, engine, steps: int = 10) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 6-7: training
+# phases 6-7: serving DeepSeek-V2-Lite
+# ---------------------------------------------------------------------------
+
+DEEPSEEK = "deepseek-v2-lite-16b"
+INIT_MEMORY_LIMIT = 40e9   # bytes: the bf16 weights (32.4 GB) and one leaf
+
+
+def check_serve_launches(cfg, engine, launches, chunks, attn_kernel):
+    """The decode kernel once per attention layer of every decode step;
+    router and expert FFN once per MoE layer of every chunk."""
+    s = engine.stats()
+    n_attn = cfg.num_layers
+    if s["attn_kernel"] != "kernel":
+        raise AssertionError(f"auto resolved to {s['attn_kernel']}")
+    if launches[attn_kernel] != s["decode_steps"] * n_attn \
+            or not launches[attn_kernel]:
+        raise AssertionError(f"{launches[attn_kernel]} {attn_kernel} "
+                             f"launches for {s['decode_steps']} decode "
+                             f"steps x {n_attn}")
+    n_moe = cfg.num_periods * sum(r["moe"] for r in cfg.layer_roles())
+    for name in ("grouped_ffn", "topk_router"):
+        if launches[name] != n_moe * chunks or not chunks:
+            raise AssertionError(
+                f"serving launched {name} {launches[name]} times, "
+                f"expected {n_moe} MoE layers x {chunks} chunks")
+
+
+def deepseek_phase(torch, build, launcher) -> collections.Counter:
+    """Full-width, full-depth DeepSeek-V2-Lite in bf16: the launcher, then
+    an ``Engine`` (8 slots, 16-token pages, 64-token chunks) serving 8
+    seeded requests (prompts 16-256, 16-32 new tokens). Returns the
+    run's kernel launches."""
+    import gc
+    from repro_torch.models.module import leaves
+    from repro_torch.serve import Engine, EngineOptions
+    stats = launcher.main(["--engine", "--arch", DEEPSEEK, "--requests", "2",
+                           "--prompt-len", "16:64", "--gen", "8:16",
+                           "--num-partitions", "4", "--seed", "1"])
+    if stats["requests_done"] != 2 or stats["arch"] != DEEPSEEK:
+        raise AssertionError(f"launcher: {stats}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = serve_config(arch=DEEPSEEK)
+    reqs = requests(cfg.vocab_size, 8, seed=5, prompt=(16, 256),
+                    gen=(16, 32))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = Engine(cfg, options=EngineOptions(device="cuda",
+                                               attn_kernel="auto", **ENGINE),
+                    seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    after_init = torch.cuda.memory_allocated()
+    if init_peak >= INIT_MEMORY_LIMIT:
+        raise AssertionError(f"Engine init peaked at {init_peak} bytes")
+    engine, handles, host, chunks = serve(cfg, reqs, engine=engine,
+                                          reset=build.reset_launches)
+    launches = collections.Counter(build.LAUNCHES)
+    check_serve_launches(cfg, engine, launches, chunks, "paged_mla_decode")
+    s = engine.stats()
+    row = dict(
+        arch=cfg.name, params=sum(t.numel() for t in leaves(engine.params)),
+        dtype=cfg.compute_dtype, init_s=init_s,
+        memory_after_init=after_init, init_max_memory_allocated=init_peak,
+        kv_cache_bytes=s["cache_bytes"], requests=s["requests_done"],
+        tokens_generated=s["tokens_generated"],
+        prefill_tok_per_s=s["prefill_tok_per_s"],
+        decode_tok_per_s=s["decode_tok_per_s"], p50_ttft_s=s["p50_ttft_s"],
+        p50_itl_s=s["p50_itl_s"],
+        p50_decode_step_ms=s["p50_decode_step_s"] * 1e3,
+        decode_steps=s["decode_steps"], prefill_steps=s["prefill_steps"],
+        chunks=chunks, launches=dict(launches),
+        max_memory_allocated=torch.cuda.max_memory_allocated(), **host)
+    log("serve-deepseek " + json.dumps(row))
+    log("decode-profile-deepseek " + json.dumps(profile_decode(torch,
+                                                               engine)))
+    del engine, handles
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def gather_vs_kernel(torch, arch: str) -> None:
+    """Equal greedy tokens through the decode kernel and the gather path:
+    full width, 2 layers, fp32, 8 requests."""
+    cfg = serve_config(num_layers=2, dtype="float32", arch=arch)
+    small = requests(cfg.vocab_size, 8, seed=2, prompt=(16, 200),
+                     gen=(16, 32))
+    outs = {}
+    for kern in ("kernel", "gather"):
+        eng, hs, _, _ = serve(cfg, small, attn_kernel=kern,
+                              preempt="recompute")
+        outs[kern] = [list(r.output) for r in hs]
+        del eng, hs
+    if outs["kernel"] != outs["gather"]:
+        first = next((i, j) for i, (a, b) in enumerate(
+            zip(outs["kernel"], outs["gather"]))
+            for j in range(max(len(a), len(b))) if a[j:j + 1] != b[j:j + 1])
+        raise AssertionError(f"{arch}: fp32 2-layer greedy tokens differ "
+                             f"between the kernel and gather decode paths "
+                             f"(request, token) {first}")
+    log(f"kernel-vs-gather {arch} fp32 2 layers: "
+        f"{sum(map(len, outs['kernel']))} greedy tokens equal")
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phases 8-9: training
 # ---------------------------------------------------------------------------
 
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
@@ -659,6 +881,8 @@ def main() -> int:
                         kernel="paged_decode_attention", library_ms=None)
                    for c in kernel_cases(torch)]
     torch.cuda.empty_cache()
+    kernel_rows += [check_mla(torch, c) for c in mla_cases(torch)]
+    torch.cuda.empty_cache()
     kernel_rows += train_kernel_cases(torch)
 
     # -- 4. serve -----------------------------------------------------------
@@ -676,21 +900,11 @@ def main() -> int:
         reset=build.reset_launches)
     serve_launches = collections.Counter(build.LAUNCHES)
     launches = serve_launches["paged_decode_attention"]
+    check_serve_launches(cfg, engine, serve_launches, chunks,
+                         "paged_decode_attention")
     s = engine.stats()
-    n_attn = cfg.num_layers
-    if s["attn_kernel"] != "kernel":
-        raise AssertionError(f"auto resolved to {s['attn_kernel']}")
-    if launches != s["decode_steps"] * n_attn or launches == 0:
-        raise AssertionError(f"{launches} kernel launches for "
-                             f"{s['decode_steps']} decode steps x {n_attn}")
     if s["preempt_recompute"] < 1:
         raise AssertionError("the small pool forced no preemption")
-    n_moe = cfg.num_periods * sum(r["moe"] for r in cfg.layer_roles())
-    for name in ("grouped_ffn", "topk_router"):
-        if serve_launches[name] != n_moe * chunks or not chunks:
-            raise AssertionError(
-                f"serving launched {name} {serve_launches[name]} times, "
-                f"expected {n_moe} MoE layers x {chunks} chunks")
     params = sum(t.numel() for t in leaves(engine.params))
     serve_row = dict(
         arch=cfg.name, params=params, dtype=cfg.compute_dtype,
@@ -709,29 +923,22 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 5. kernel vs gather ------------------------------------------------
-    cfg2 = serve_config(num_layers=2, dtype="float32")
-    small = requests(cfg2.vocab_size, 8, seed=2, prompt=(16, 200),
-                     gen=(16, 32))
-    outs = {}
-    for kern in ("kernel", "gather"):
-        eng, hs, _, _ = serve(cfg2, small, attn_kernel=kern,
-                           preempt="recompute")
-        outs[kern] = [list(r.output) for r in hs]
-        del eng, hs
-    if outs["kernel"] != outs["gather"]:
-        raise AssertionError("fp32 2-layer greedy tokens differ between "
-                             "the kernel and gather decode paths")
-    log(f"kernel-vs-gather fp32 2 layers: {sum(map(len, outs['kernel']))} "
-        f"greedy tokens equal")
-    torch.cuda.empty_cache()
+    gather_vs_kernel(torch, "moe-gpt3-s")
 
-    # -- 6. train -----------------------------------------------------------
+    # -- 6. serve DeepSeek-V2-Lite ------------------------------------------
+    deepseek_launches = deepseek_phase(torch, build, launcher)
+
+    # -- 7. kernel vs gather, DeepSeek-V2-Lite -------------------------------
+    gather_vs_kernel(torch, DEEPSEEK)
+
+    # -- 8. train -----------------------------------------------------------
     train_rows, train_launches = train_phase(torch, build)
 
-    # -- 7. card vs CPU -----------------------------------------------------
+    # -- 9. card vs CPU -----------------------------------------------------
     card_vs_cpu(torch)
 
-    # -- 8. kernels line ----------------------------------------------------
+    # -- 10. kernels line ---------------------------------------------------
+    main_launches = serve_launches + deepseek_launches + train_launches
     def head(kernel, case="train", dtype="bfloat16"):
         return next(r for r in kernel_rows if r["kernel"] == kernel
                     and r["case"] == case and r["dtype"] == dtype
@@ -742,7 +949,7 @@ def main() -> int:
         return {"name": name, "route": "cuda",
                 "source": "src/repro_torch/kernels/" + src,
                 "replaces": "src/repro/kernels/" + replaces,
-                "launches": serve_launches[name] + train_launches[name],
+                "launches": main_launches[name],
                 "max_abs_err": row["max_abs_err"], "tol": row["tol"],
                 "max_abs_err_float32": max(r["max_abs_err"] for r in mine
                                            if r["dtype"] == "float32"),
@@ -753,7 +960,9 @@ def main() -> int:
                 "library_ms": row["library_ms"], **extra}
 
     log("library_ms: null for paged_decode_attention (no single PyTorch "
-        "call attends over a page table), topk_router (softmax then "
+        "call attends over a page table), paged_mla_decode (no single "
+        "call attends over a page table whose keys are latents shared by "
+        "the heads), topk_router (softmax then "
         "torch.topk is two calls, and topk promises no tie order) and "
         "grouped_ffn (no single call runs a per-expert GEMM -> activation "
         "-> GEMM); flash_attention's is scaled_dot_product_attention "
@@ -762,6 +971,9 @@ def main() -> int:
         entry("paged_decode_attention", "paged_attention/csrc/"
               "paged_decode.cu", "paged_attention/kernel.py:69",
               head("paged_decode_attention", "engine")),
+        entry("paged_mla_decode", "paged_attention/csrc/"
+              "paged_mla_decode.cu", "paged_attention/kernel.py:142",
+              head("paged_mla_decode", "engine")),
         entry("grouped_ffn", "grouped_ffn/csrc/grouped_ffn.cu",
               "grouped_ffn/kernel.py:61", head("grouped_ffn")),
         entry("topk_router", "topk_router/csrc/topk_router.cu",
@@ -771,7 +983,7 @@ def main() -> int:
               "flash_attention/kernel.py:67", head("flash_attention")),
     ]}), flush=True)
 
-    # -- 9. result ----------------------------------------------------------
+    # -- 11. result ---------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -34,6 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES: Dict[str, Path] = {
     "paged_decode": KERNELS_DIR / "paged_attention" / "csrc"
                     / "paged_decode.cu",
+    "paged_mla_decode": KERNELS_DIR / "paged_attention" / "csrc"
+                        / "paged_mla_decode.cu",
     "topk_router": KERNELS_DIR / "topk_router" / "csrc" / "topk_router.cu",
     "grouped_ffn": KERNELS_DIR / "grouped_ffn" / "csrc" / "grouped_ffn.cu",
     "flash_attention": KERNELS_DIR / "flash_attention" / "csrc"

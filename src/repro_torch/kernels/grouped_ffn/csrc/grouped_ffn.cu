@@ -19,19 +19,25 @@
 //
 // Design (simple first; wgmma, TMA, split-H over more blocks are later
 // work):
-//  * One 256-thread block per (expert, 32-token tile): for C = 40 that is
-//    2 blocks an expert, 128 blocks in all. The two blocks of one expert
-//    are neighbours in the grid and run together, so the second reads the
-//    expert's weights mostly from L2.
-//  * The block stages its x tile [32, M] in shared memory once, then walks
+//  * One 256-thread block per (expert, token tile of TC rows): TC = 32 for
+//    M <= 1024, TC = 16 for 1024 < M <= 2048. For C = 40 and TC = 32 that
+//    is 2 blocks an expert, 128 blocks in all. The blocks of one expert are
+//    neighbours in the grid and run together, so all but the first read
+//    the expert's weights mostly from L2.
+//  * The block stages its x tile [TC, M] in shared memory once, then walks
 //    H in 64-column tiles. GEMM1 streams w_up (and w_gate) in K-chunks
-//    through a two-stage cp.async ring; each of the 8 warps owns one 16x16
-//    piece of the [32, 64] hidden tile. The hidden tile goes through
-//    shared memory in fp32 for the activation, is rounded to x's dtype,
-//    and GEMM2 streams w_down's [64, M] slab in column chunks through the
-//    same kind of ring into the fp32 output accumulator, which stays in
-//    registers for the whole H loop (16 16x16 fragments a warp at most, so
-//    M <= 1024). T_M never reaches device memory.
+//    through a two-stage cp.async ring; each warp owns one 16x16 piece of
+//    the [TC, 64] hidden tile (at TC = 16 four warps have one, the other
+//    four wait). The hidden tile goes through shared memory in fp32 for
+//    the activation, is rounded to x's dtype, and GEMM2 streams w_down's
+//    [64, M] slab in column chunks through the same kind of ring into the
+//    fp32 output accumulator, which stays in registers for the whole H
+//    loop: [TC, M] is 16 16x16 fragments a warp at most, hence M <= 1024
+//    at TC = 32 and M <= 2048 at TC = 16 (DeepSeek-V2-Lite and moe-gpt3-xl
+//    have d_model 2048). The fp32 x tile [16, 2048] takes 128 KB of shared
+//    memory, so the fp32 TC = 16 tiling streams w_up in 16-row K-chunks
+//    and w_down in 128-column chunks to stay within 227 KB. T_M never
+//    reaches device memory.
 //  * bf16 runs on the tensor cores through WMMA (16x16x16, fp32
 //    accumulation). fp32 runs the same tiling with FMAs on the CUDA cores
 //    (no TF32: it would not hold a 1e-5 limit).
@@ -55,25 +61,45 @@ using namespace nvcuda;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTC = 32;      // token rows per block
 constexpr int kBH = 64;      // hidden columns per H tile
-constexpr int kMaxM = 1024;  // output accumulator: 16 fragments a warp
 constexpr int kLdf = kBH + 4;
+constexpr int kAccFrags = 16;  // output accumulator fragments a warp
 
-template <typename T>
+// Tiling of one block holding TC token rows.
+template <typename T, int TC>
 struct Tile;
 template <>
-struct Tile<__nv_bfloat16> {
+struct Tile<__nv_bfloat16, 32> {
   static constexpr int BK = 64;   // GEMM1 K-chunk (rows of w_up)
   static constexpr int WN = 128;  // GEMM2 column chunk (of w_down)
   static constexpr int PAD = 8;   // row padding, elements
 };
 template <>
-struct Tile<float> {
+struct Tile<__nv_bfloat16, 16> {
+  static constexpr int BK = 64;
+  static constexpr int WN = 128;
+  static constexpr int PAD = 8;
+};
+template <>
+struct Tile<float, 32> {
   static constexpr int BK = 32;
   static constexpr int WN = 64;
   static constexpr int PAD = 4;
 };
+template <>
+struct Tile<float, 16> {
+  static constexpr int BK = 16;
+  static constexpr int WN = 128;
+  static constexpr int PAD = 4;
+};
+
+// The most M a block of TC rows takes: its [TC, M] fp32 output
+// accumulator is kAccFrags 16x16 fragments a warp.
+template <int TC>
+__host__ __device__ constexpr int max_m() {
+  return kAccFrags * kWarps * 256 / TC;
+}
+constexpr int kMaxM = max_m<16>();  // 2048
 
 // 16x16x16 multiply-accumulate on shared-memory tiles, row-major A and B.
 template <typename T>
@@ -179,37 +205,43 @@ __host__ __device__ constexpr size_t align128(size_t b) {
 
 // Shared-memory layout of one block; the kernel and the size query both
 // read it from here.
-template <typename T>
+template <typename T, int TC>
 struct Layout {
   size_t xs, wu, wg, wd, hf, hs, total;
   __host__ __device__ Layout(int m, bool gated) {
-    using C = Tile<T>;
+    using C = Tile<T, TC>;
     const size_t wu_bytes = align128(2 * C::BK * (kBH + C::PAD) * sizeof(T));
     xs = 0;
-    wu = xs + align128(size_t(kTC) * (m + C::PAD) * sizeof(T));
+    wu = xs + align128(size_t(TC) * (m + C::PAD) * sizeof(T));
     wg = wu + wu_bytes;
     wd = wg + (gated ? wu_bytes : 0);
     hf = wd + align128(2 * kBH * (C::WN + C::PAD) * sizeof(T));
-    hs = hf + align128(2 * kTC * kLdf * sizeof(float));
-    total = hs + align128(kTC * (kBH + C::PAD) * sizeof(T));
+    hs = hf + align128(2 * TC * kLdf * sizeof(float));
+    total = hs + align128(TC * (kBH + C::PAD) * sizeof(T));
   }
 };
 
-template <typename T, bool Gated>
+template <typename T, bool Gated, int TC>
 __global__ void __launch_bounds__(kThreads, 1)
     grouped_ffn_kernel(const T* __restrict__ x, const T* __restrict__ w_up,
                        const T* __restrict__ w_gate,
                        const T* __restrict__ w_down, T* __restrict__ out,
                        int c, int m, int h, int act) {
-  using C = Tile<T>;
+  using C = Tile<T, TC>;
   using MM = Mma<T>;
   constexpr int BK = C::BK, WN = C::WN, PAD = C::PAD;
   constexpr int NFC = WN / 16;             // column fragments per chunk
-  constexpr int PER = 2 * NFC / kWarps;    // accumulators a warp, a chunk
-  constexpr int MAXCH = kMaxM / WN;        // column chunks at most
+  constexpr int PER = (TC / 16) * NFC / kWarps;  // accumulators a warp,
+                                                 // a chunk
+  constexpr int MAXCH = max_m<TC>() / WN;  // column chunks at most
+  constexpr int NF1 = (TC / 16) * (kBH / 16);  // GEMM1 fragments
+  static_assert(PER * MAXCH == kAccFrags && PER * kWarps == (TC / 16) * NFC,
+                "every warp holds kAccFrags output fragments");
+  static_assert(NF1 <= kWarps && kWarps * 256 <= 2 * TC * kLdf,
+                "GEMM1 fragments and the epilogue scratch fit");
   extern __shared__ __align__(128) unsigned char smem[];
 
-  const Layout<T> lay(m, Gated);
+  const Layout<T, TC> lay(m, Gated);
   T* xs = reinterpret_cast<T*>(smem + lay.xs);
   T* wus = reinterpret_cast<T*>(smem + lay.wu);
   T* wgs = reinterpret_cast<T*>(smem + lay.wg);
@@ -218,14 +250,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   T* hs = reinterpret_cast<T*>(smem + lay.hs);
   const int ldx = m + PAD, ldu = kBH + PAD, ldd = WN + PAD, ldh = kBH + PAD;
 
-  const int e = blockIdx.y, row0 = blockIdx.x * kTC;
+  const int e = blockIdx.y, row0 = blockIdx.x * TC;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int64_t mh = int64_t(m) * h;
   const T* wue = w_up + e * mh;
   const T* wge = Gated ? w_gate + e * mh : nullptr;
   const T* wde = w_down + e * mh;
 
-  load_tile(xs, ldx, x + (int64_t(e) * c + row0) * m, m, kTC, m, c - row0,
+  load_tile(xs, ldx, x + (int64_t(e) * c + row0) * m, m, TC, m, c - row0,
             m);
   cp_commit();
 
@@ -236,9 +268,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int nk = (m + BK - 1) / BK, nh = (h + kBH - 1) / kBH;
   const int nch = (m + WN - 1) / WN;
   const int fr = warp / 4, fc = warp % 4;  // this warp's GEMM1 fragment
+  const bool g1 = NF1 == kWarps || warp < NF1;  // the warp has one
   for (int ht = 0; ht < nh; ++ht) {
     const int h0 = ht * kBH;
-    // ---- GEMM1: [32, M] x [M, 64] -> fp32 hidden tile -----------------
+    // ---- GEMM1: [TC, M] x [M, 64] -> fp32 hidden tile -----------------
     typename MM::Acc up, gt;
     MM::zero(up);
     MM::zero(gt);
@@ -263,7 +296,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         const int k = kc * BK + kk * 16;
-        if (k >= m) break;
+        if (k >= m || !g1) break;
         const T* a = xs + fr * 16 * ldx + k;
         const int boff = st * BK * ldu + kk * 16 * ldu + fc * 16;
         MM::mma(up, a, ldx, wus + boff, ldu);
@@ -272,18 +305,21 @@ __global__ void __launch_bounds__(kThreads, 1)
       __syncthreads();
     }
     // ---- activation in fp32, rounded to x's dtype -----------------------
-    MM::store(hf + fr * 16 * kLdf + fc * 16, up, kLdf);
-    if (Gated) MM::store(hf + kTC * kLdf + fr * 16 * kLdf + fc * 16, gt, kLdf);
+    if (g1) {
+      MM::store(hf + fr * 16 * kLdf + fc * 16, up, kLdf);
+      if (Gated)
+        MM::store(hf + TC * kLdf + fr * 16 * kLdf + fc * 16, gt, kLdf);
+    }
     __syncthreads();
-    for (int i = threadIdx.x; i < kTC * kBH; i += kThreads) {
+    for (int i = threadIdx.x; i < TC * kBH; i += kThreads) {
       const int r = i / kBH, col = i % kBH;
       const float u = hf[r * kLdf + col];
-      const float v = Gated ? activate(hf[kTC * kLdf + r * kLdf + col], act) * u
+      const float v = Gated ? activate(hf[TC * kLdf + r * kLdf + col], act) * u
                             : activate(u, act);
       hs[r * ldh + col] = from_float<T>(v);
     }
     __syncthreads();
-    // ---- GEMM2: [32, 64] x [64, M] into the fp32 output accumulator ----
+    // ---- GEMM2: [TC, 64] x [64, M] into the fp32 output accumulator ----
     const T* wdt = wde + int64_t(h0) * m;
     load_tile(wds, ldd, wdt, m, kBH, WN, h - h0, m);
     cp_commit();
@@ -339,18 +375,22 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// Token rows a block holds at this M: 32 while the accumulator allows it.
+int rows_for(int m) { return m <= max_m<32>() ? 32 : 16; }
+
 template <typename T>
 size_t smem_bytes(int m, bool gated) {
-  return Layout<T>(m, gated).total;
+  return rows_for(m) == 32 ? Layout<T, 32>(m, gated).total
+                           : Layout<T, 16>(m, gated).total;
 }
 
-template <typename T, bool Gated>
-int launch(const void* x, const void* wu, const void* wg, const void* wd,
-           void* out, int e, int c, int m, int h, int act,
-           cudaStream_t stream) {
+template <typename T, bool Gated, int TC>
+int launch_rows(const void* x, const void* wu, const void* wg,
+                const void* wd, void* out, int e, int c, int m, int h,
+                int act, cudaStream_t stream) {
   static size_t opted_in = 0;      // dynamic shared memory already allowed
-  const size_t smem = smem_bytes<T>(m, Gated);
-  auto kernel = grouped_ffn_kernel<T, Gated>;
+  const size_t smem = Layout<T, TC>(m, Gated).total;
+  auto kernel = grouped_ffn_kernel<T, Gated, TC>;
   if (smem > opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -358,12 +398,23 @@ int launch(const void* x, const void* wu, const void* wg, const void* wd,
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = smem;
   }
-  const dim3 grid((c + kTC - 1) / kTC, e);
+  const dim3 grid((c + TC - 1) / TC, e);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wu),
       static_cast<const T*>(wg), static_cast<const T*>(wd),
       static_cast<T*>(out), c, m, h, act);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool Gated>
+int launch(const void* x, const void* wu, const void* wg, const void* wd,
+           void* out, int e, int c, int m, int h, int act,
+           cudaStream_t stream) {
+  if (rows_for(m) == 32)
+    return launch_rows<T, Gated, 32>(x, wu, wg, wd, out, e, c, m, h, act,
+                                     stream);
+  return launch_rows<T, Gated, 16>(x, wu, wg, wd, out, e, c, m, h, act,
+                                   stream);
 }
 
 }  // namespace

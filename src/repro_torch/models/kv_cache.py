@@ -2,9 +2,13 @@
 
 The counterpart of the paged half of ``repro.models.kv_cache``: per
 attention layer a global pool ``[num_pages, page_size, kv_heads,
-head_dim]`` for K and one for V, shared by every in-flight sequence; a
+head_dim]`` for K and one for V (MLA: the latent ``c_kv`` ``[num_pages,
+page_size, kv_lora_rank]`` and the shared rotary key ``[num_pages,
+page_size, rope_head_dim]``), shared by every in-flight sequence; a
 per-sequence page table maps logical page -> physical page. Page 0 is
 the reserved write sink for masked (padding / inactive-slot) writes.
+Everything past the page axis is trailing-dim generic, so the page
+allocator does not know which kind of pool it serves.
 
 Unlike JAX, which returns new pools from every scatter, the port updates
 the pools **in place** (``scatter_pages`` writes into the tensor it is
@@ -23,17 +27,23 @@ from repro_torch.configs.base import ArchConfig
 def paged_layer_pool(cfg: ArchConfig, role: Dict, num_pages: int,
                      page_size: int, dtype=torch.bfloat16,
                      device="cpu") -> Dict[str, torch.Tensor]:
-    """K and V pools of one attention layer, each ``[num_pages,
-    page_size, kv_heads, head_dim]``, zero-filled."""
+    """The pools of one attention layer, zero-filled: K and V, each
+    ``[num_pages, page_size, kv_heads, head_dim]``, or for MLA
+    ``ckv_pool`` ``[num_pages, page_size, kv_lora_rank]`` and
+    ``kr_pool`` ``[num_pages, page_size, rope_head_dim]``."""
     a = cfg.attn
     if role["mixer"] != "attn":
         raise NotImplementedError(
             f"paged KV supports attention layers only "
             f"(got mixer={role['mixer']!r})")
     if a.mla is not None:
-        raise NotImplementedError(
-            "MLA latent pools come with ROADMAP.md's 'Other "
-            "architectures' slice (deepseek)")
+        m = a.mla
+        return {"ckv_pool": torch.zeros((num_pages, page_size,
+                                         m.kv_lora_rank), dtype=dtype,
+                                        device=device),
+                "kr_pool": torch.zeros((num_pages, page_size,
+                                        m.rope_head_dim), dtype=dtype,
+                                       device=device)}
     kd = (num_pages, page_size, a.num_kv_heads, cfg.head_dim)
     return {"k_pool": torch.zeros(kd, dtype=dtype, device=device),
             "v_pool": torch.zeros(kd, dtype=dtype, device=device)}

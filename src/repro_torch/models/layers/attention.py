@@ -12,6 +12,11 @@ The counterpart of the paged half of ``repro.models.layers.attention``:
   decode through the hand-written CUDA kernel
   (``repro_torch.kernels.paged_attention``) when ``attn_kernel ==
   "kernel"``, else through ``gather_pages`` + ``decode_attention``.
+* MLA (DeepSeek-V2, ``_apply_mla_paged``) pages the compressed latent
+  ``c_kv`` and the shared rotary key instead of K/V, and attends in the
+  absorbed form (q projected into the latent space): decode through the
+  hand-written MLA kernel when ``attn_kernel == "kernel"``, chunked
+  prefill always through the gathered einsums, as in the JAX package.
   Without a cache (``mode="train"``) it runs causal attention through
   the hand-written ``flash_attention`` kernel
   (``repro_torch.kernels.flash_attention``; its plain version on the
@@ -33,6 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import kv_cache as KV
+from repro_torch.models.layers import rope as rope_lib
 from repro_torch.models.module import Spec
 
 NEG_INF = -2.0e38
@@ -41,10 +47,28 @@ ATTN_KERNELS = ("kernel", "gather")   # decode attention paths
 
 def specs(cfg: ArchConfig):
     a = cfg.attn
-    if a.mla is not None:
-        raise NotImplementedError(
-            "MLA comes with ROADMAP.md's 'Other architectures' slice")
     d, hd = cfg.d_model, cfg.head_dim
+    if a.mla is not None:
+        m = a.mla
+        qk_dim = m.nope_head_dim + m.rope_head_dim
+        s = {
+            "w_dkv": Spec((d, m.kv_lora_rank), ("embed", "kv_lora")),
+            "w_kr": Spec((d, m.rope_head_dim), ("embed", None)),
+            "w_uk": Spec((m.kv_lora_rank, a.num_heads, m.nope_head_dim),
+                         ("kv_lora", "heads", "head_dim")),
+            "w_uv": Spec((m.kv_lora_rank, a.num_heads, m.v_head_dim),
+                         ("kv_lora", "heads", "head_dim")),
+            "w_o": Spec((a.num_heads, m.v_head_dim, d),
+                        ("heads", "head_dim", "embed_out")),
+        }
+        if m.q_lora_rank:
+            s["w_dq"] = Spec((d, m.q_lora_rank), ("embed", "kv_lora"))
+            s["w_uq"] = Spec((m.q_lora_rank, a.num_heads, qk_dim),
+                             ("kv_lora", "heads", "head_dim"))
+        else:
+            s["w_q"] = Spec((d, a.num_heads, qk_dim),
+                            ("embed", "heads", "head_dim"))
+        return s
     s = {
         "w_q": Spec((d, a.num_heads, hd), ("embed", "heads", "head_dim")),
         "w_k": Spec((d, a.num_kv_heads, hd),
@@ -168,8 +192,83 @@ def _proj_qkv(params, x, cfg: ArchConfig):
 def _check_positional(cfg: ArchConfig):
     if cfg.positional == "rope" and cfg.attn.rope_theta != 0.0:
         raise NotImplementedError(
-            "rotary positions come with ROADMAP.md's 'Other "
-            "architectures' slice; the port serves learned positions")
+            "rotary positions on GQA attention come with ROADMAP.md's "
+            "'Other architectures' slice; the port serves learned "
+            "positions, and RoPE only through MLA")
+
+
+def _mla_q(params, x, cfg: ArchConfig):
+    """x ``[B, S, d]`` -> (q_nope ``[B, S, H, nope]``, q_rope ``[B, S, H,
+    rope]``), through the low-rank ``w_dq``/``w_uq`` when q is
+    compressed."""
+    m = cfg.attn.mla
+    dt = x.dtype
+    if m.q_lora_rank:
+        cq = torch.einsum("bsd,dr->bsr", x, params["w_dq"].to(dt))
+        q = torch.einsum("bsr,rhe->bshe", cq, params["w_uq"].to(dt))
+    else:
+        q = torch.einsum("bsd,dhe->bshe", x, params["w_q"].to(dt))
+    return q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+
+
+def _apply_mla_paged(params, x, *, cfg: ArchConfig, positions, cache: dict):
+    """MLA over paged *latent* pools: ``ckv_pool`` ``[P, ps,
+    kv_lora_rank]`` and ``kr_pool`` ``[P, ps, rope_head_dim]`` in place of
+    K/V. This step's latent and rotated rotary key are scattered first
+    (in place); then attention runs in the absorbed form, ``q_abs =
+    q_nope . w_uk``, so the latents are never expanded to per-head K/V.
+    Key position ``t`` is visible to the query at absolute position
+    ``positions[b, s]`` iff ``t <= positions`` (decode passes ``lens``,
+    which includes the token just written). Padding and inactive-slot
+    writes go to the sink page as on the GQA path; their query rows read
+    finite values that the engine discards."""
+    a, m = cfg.attn, cfg.attn.mla
+    dt = x.dtype
+    s = x.shape[1]
+    q_nope, q_rope = _mla_q(params, x, cfg)
+    q_rope = rope_lib.apply_rope(q_rope, positions, a.rope_theta)
+    c_kv = torch.einsum("bsd,dr->bsr", x, params["w_dkv"].to(dt))
+    k_rope = torch.einsum("bsd,dr->bsr", x, params["w_kr"].to(dt))
+    k_rope = rope_lib.apply_rope(k_rope[:, :, None, :], positions,
+                                 a.rope_theta)[:, :, 0, :]
+    if s > 1:
+        assert x.shape[0] == 1, "paged chunked prefill runs one sequence"
+
+    valid = cache.get("write_valid")
+    sink = cache.get("write_sink")
+    sink = 0 if sink is None else sink
+    ckv_pool = KV.scatter_pages(cache["ckv_pool"], cache["page_table"],
+                                positions, c_kv, valid, sink=sink)
+    kr_pool = KV.scatter_pages(cache["kr_pool"], cache["page_table"],
+                               positions, k_rope, valid, sink=sink)
+    new_cache = {"ckv_pool": ckv_pool, "kr_pool": kr_pool}
+
+    q_abs = torch.einsum("bshe,rhe->bshr", q_nope, params["w_uk"].to(dt))
+    scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
+    kern = cache.get("attn_kernel")
+    if kern not in ATTN_KERNELS:
+        raise ValueError(f"attn_kernel must be one of {ATTN_KERNELS}, "
+                         f"got {kern!r}")
+    if s == 1 and kern == "kernel":
+        from repro_torch.kernels.paged_attention import paged_mla_decode
+        ctx = paged_mla_decode(q_abs.contiguous(), q_rope.contiguous(),
+                               ckv_pool, kr_pool, cache["page_table"],
+                               cache["lens"], scale=scale)
+    else:
+        ckv_all = KV.gather_pages(ckv_pool, cache["page_table"]).float()
+        kr_all = KV.gather_pages(kr_pool, cache["page_table"]).float()
+        s_ = (torch.einsum("bshr,btr->bhst", q_abs.float(), ckv_all)
+              + torch.einsum("bshe,bte->bhst", q_rope.float(), kr_all))
+        s_ = s_ * scale
+        t = ckv_all.shape[1]
+        mask = (torch.arange(t, device=x.device)[None, None, :]
+                <= positions[:, :, None])
+        s_ = torch.where(mask[:, None, :, :], s_, NEG_INF)
+        p = torch.softmax(s_, dim=-1)
+        ctx = torch.einsum("bhst,btr->bshr", p, ckv_all)
+    out = torch.einsum("bshr,rhe->bshe", ctx.to(dt), params["w_uv"].to(dt))
+    out = torch.einsum("bshe,hed->bsd", out, params["w_o"].to(dt))
+    return out, new_cache
 
 
 def _apply_train(params, x, *, cfg: ArchConfig, window: int):
@@ -189,7 +288,8 @@ def apply(params, x, *, cfg: ArchConfig, positions, is_global: bool = True,
     the flash kernel; ``new_cache`` is None. Otherwise, attention over a
     paged KV pool (``repro_torch.serve``):
 
-    ``cache``: ``k_pool``/``v_pool`` ``[P, ps, Kv, D]``, ``page_table``
+    ``cache``: ``k_pool``/``v_pool`` ``[P, ps, Kv, D]`` (MLA:
+    ``ckv_pool``/``kr_pool``, see ``_apply_mla_paged``), ``page_table``
     ``[B, NP]``, ``lens`` ``[B]`` (tokens already cached per sequence),
     optionally ``write_valid`` ``[B, S]`` and ``write_sink`` ``[B]``,
     and ``attn_kernel``: ``"kernel"`` (decode through the CUDA
@@ -200,8 +300,16 @@ def apply(params, x, *, cfg: ArchConfig, positions, is_global: bool = True,
     prefill (S > 1) requires B == 1 and attends the chunk against the
     gathered pages with ``q_offset = lens[0]``.
     """
-    _check_positional(cfg)
+    if cache is not None and "ckv_pool" in cache:
+        return _apply_mla_paged(params, x, cfg=cfg, positions=positions,
+                                cache=cache)
     a = cfg.attn
+    if a.mla is not None:
+        raise NotImplementedError(
+            "MLA runs over paged latent pools only; its train path "
+            "(_apply_mla) comes with ROADMAP.md's 'Other architectures' "
+            "slice")
+    _check_positional(cfg)
     window = 0 if (is_global and a.global_period > 1) else a.window
     if cache is None:
         if mode != "train":

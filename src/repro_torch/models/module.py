@@ -66,16 +66,24 @@ def leaves(tree) -> list:
     return [tree]
 
 
-def build(spec_tree, gen: torch.Generator, device) -> Any:
+def build(spec_tree, gen: torch.Generator, device,
+          leaf_fn: Optional[Callable[[tuple, torch.Tensor],
+                                     torch.Tensor]] = None,
+          path: tuple = ()) -> Any:
     """Materialize a tree of Specs into tensors on ``device``, drawing
-    from ``gen`` leaf by leaf in sorted-key order (deterministic)."""
+    from ``gen`` leaf by leaf in sorted-key order (deterministic).
+    ``leaf_fn(path, leaf)``, when given, replaces each leaf as soon as it
+    is drawn, before the next one is: a cast there keeps one fp32 leaf
+    alive at a time instead of the whole fp32 tree."""
     device = torch.device(device)
     if isinstance(spec_tree, dict):
-        return {k: build(spec_tree[k], gen, device)
+        return {k: build(spec_tree[k], gen, device, leaf_fn, path + (k,))
                 for k in sorted(spec_tree)}
     if isinstance(spec_tree, (list, tuple)):
-        return [build(v, gen, device) for v in spec_tree]
-    return _materialize(spec_tree, gen, device)
+        return [build(v, gen, device, leaf_fn, path + (i,))
+                for i, v in enumerate(spec_tree)]
+    x = _materialize(spec_tree, gen, device)
+    return x if leaf_fn is None else leaf_fn(path, x)
 
 
 def stack(spec_tree, n: int) -> list:
@@ -88,6 +96,16 @@ def count(spec_tree) -> int:
     return sum(int(math.prod(s.shape)) for s in leaves(spec_tree))
 
 
+def cast_leaf(x, dtype: torch.dtype, keep: Callable[[tuple], bool],
+              path: tuple):
+    """``x`` cast to ``dtype`` if it is a floating tensor whose key path
+    ``keep(path)`` does not hold; otherwise ``x`` as it is."""
+    if (isinstance(x, torch.Tensor) and x.is_floating_point()
+            and not keep(path)):
+        return x.to(dtype)
+    return x
+
+
 def cast_tree(params, dtype: torch.dtype, keep: Callable[[tuple], bool],
               path: tuple = ()):
     """Floating leaves cast to ``dtype`` (a copy made once at load), except
@@ -98,7 +116,4 @@ def cast_tree(params, dtype: torch.dtype, keep: Callable[[tuple], bool],
     if isinstance(params, (list, tuple)):
         return type(params)(cast_tree(v, dtype, keep, path + (i,))
                             for i, v in enumerate(params))
-    if (isinstance(params, torch.Tensor) and params.is_floating_point()
-            and not keep(path)):
-        return params.to(dtype)
-    return params
+    return cast_leaf(params, dtype, keep, path)

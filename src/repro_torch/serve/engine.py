@@ -111,12 +111,13 @@ class Engine:
             self.attn_kernel = ("kernel" if self.device.type == "cuda"
                                 else "gather")
         self.cfg = cfg
-        if params is None:
-            params = lm.init(cfg, seed, device=self.device)
+        if params is None:       # never the fp32 tree beside its copy
+            self.params = lm.init_compute(cfg, seed, device=self.device)
         elif any(t.device != self.device for t in leaves(params)):
             raise ValueError(f"params must lie on the engine's device "
                              f"{self.device}")
-        self.params = lm.compute_params(params, cfg)
+        else:
+            self.params = lm.compute_params(params, cfg)
         del params
         self.kv = PagedKVCache(
             cfg, num_pages=opts.num_pages, page_size=opts.page_size,

@@ -56,7 +56,8 @@ def test_port_sources_never_name_jax_or_repro_imports():
 def test_config_copy_equals_jax(reduced):
     from repro.configs import get_config as jax_config
     from repro_torch.configs import get_config
-    for name in ("moe-gpt3-s", "moe-gpt3-xl", "moe-bert-l"):
+    for name in ("moe-gpt3-s", "moe-gpt3-xl", "moe-bert-l",
+                 "deepseek-v2-lite-16b"):
         a, b = jax_config(name), get_config(name)
         if reduced:
             a, b = a.reduced(), b.reduced()
@@ -68,7 +69,7 @@ def test_config_copy_equals_jax(reduced):
 def test_param_count_matches_jax():
     from repro.configs import get_config as jax_config
     from repro_torch.configs import get_config
-    for name in ("moe-gpt3-s", "moe-bert-l"):
+    for name in ("moe-gpt3-s", "moe-bert-l", "deepseek-v2-lite-16b"):
         assert get_config(name).param_count() == \
             jax_config(name).param_count()
         assert get_config(name).active_param_count() == \
