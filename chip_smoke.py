@@ -20,8 +20,12 @@ order; any failure ends the run with a non-zero exit and no result line:
    and serving shapes and at DeepSeek-V2-Lite's k 6 (indices equal,
    probabilities within 1e-6); the expert FFN at the training chunk and
    the serving capacity, gated silu, a ragged C and DeepSeek-V2-Lite's
-   M 2048; flash attention at the training shape, with a window and with
-   GQA. Limits: 1e-5 in fp32 (the MLA kernel: ``ref.tolerance_mla``, the
+   M 2048, and on two dispatch buffers that the port's own route ->
+   dispatch_plan -> dispatch builds from 8 seeded decode tokens
+   (moe-gpt3-s top-1, DeepSeek-V2-Lite top-6: the experts no token
+   reached must come out exactly 0, and the bound counts only the
+   weights of the experts that were reached); flash attention at the
+   training shape, with a window, with GQA and at head dim 128. Limits: 1e-5 in fp32 (the MLA kernel: ``ref.tolerance_mla``, the
    same in both dtypes); in bf16 each kernel's ``ref.tolerance``: one
    rounding of the largest output for paged decode and the expert FFN,
    and for flash attention a limit per element (one output rounding plus
@@ -410,6 +414,59 @@ def check_grouped(torch, case, e, c, m, h, gated, act, dtype, seed):
         max_abs_ref=ref.float().abs().max().item())
 
 
+def check_routed(torch, case, arch, seed):
+    """The expert FFN on the dispatch buffer of one decode step: 8 seeded
+    tokens through the port's ``route`` (random gate weights),
+    ``dispatch_plan`` and ``dispatch`` at the decode capacity, full-width
+    random bf16 experts. The rows of every expert no token reached are
+    zero, so the kernel must read none of its weights and write its
+    output as exactly 0. The bound counts the weights of the experts
+    reached, all of x and the output."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline_moe import capacity_for
+    from repro_torch.kernels.grouped_ffn import grouped_ffn, grouped_ffn_ref
+    from repro_torch.kernels.grouped_ffn.ref import tolerance
+    from repro_torch.moe import dispatch as D
+    from repro_torch.moe.router import route
+    cfg = get_config(arch)
+    mo = cfg.moe
+    e, m, h, t = mo.num_experts, cfg.d_model, mo.d_expert, 8
+    tokens = randn(torch, (t, m), seed, dtype="bfloat16")
+    params = {"w_gate": randn(torch, (m, e), seed + 1, 0.02)}
+    if mo.gate_bias:
+        params["b_gate"] = torch.zeros(e, device="cuda")
+    _, eidx, _ = route(params, tokens, cfg)
+    cap = capacity_for(t, mo.top_k, mo.capacity_factor, e)
+    dest, valid = D.dispatch_plan(eidx, e, cap)
+    x = D.dispatch(tokens, dest, e, cap)
+    fed = (x.reshape(e, -1) != 0).any(dim=1)
+    n_fed = int(fed.sum())
+    wu = randn(torch, (e, m, h), seed + 2, m ** -0.5, "bfloat16")
+    wg = randn(torch, (e, m, h), seed + 3, m ** -0.5, "bfloat16") \
+        if cfg.gated_ffn else None
+    wd = randn(torch, (e, h, m), seed + 4, h ** -0.5, "bfloat16")
+    act = cfg.ffn_act
+    out = grouped_ffn(x, wu, wg, wd, act)
+    ref = grouped_ffn_ref(x, wu, wg, wd, act)
+    torch.cuda.synchronize()
+    if not bool((out[~fed] == 0).all()):
+        raise AssertionError(f"grouped_ffn {case}: an expert no token "
+                             f"reached has a non-zero output row")
+    n_w = 3 if cfg.gated_ffn else 2
+    rows = int(valid.sum())
+    return kernel_row(
+        "grouped_ffn", case, "bfloat16",
+        (out.float() - ref.float()).abs(), tolerance(ref), out,
+        lambda: grouped_ffn(x, wu, wg, wd, act),
+        lambda: grouped_ffn_ref(x, wu, wg, wd, act),
+        roof((2 * e * cap * m + n_w * n_fed * m * h) * 2,
+             2 * rows * m * h * n_w, "bfloat16"),
+        iters=20, shape=dict(E=e, C=cap, M=m, H=h, gated=cfg.gated_ffn,
+                             act=act, tokens=t, top_k=mo.top_k),
+        active_experts=n_fed, idle_rows_exactly_zero=True,
+        max_abs_ref=ref.float().abs().max().item())
+
+
 def attended_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
     total = 0
     for i in range(sq):
@@ -457,9 +514,10 @@ def train_kernel_cases(torch) -> list:
     pieces), and at DeepSeek-V2-Lite's top-6; the expert FFN at
     moe-gpt3-s's training chunk (C 40) and decode/prefill capacity (C 8),
     gated silu, a ragged C and DeepSeek-V2-Lite's gated silu experts (E
-    64, C 8, M 2048, H 1408); attention
-    at the training shape, with a window and with GQA (the serving path
-    does not run it: prefill keeps the blockwise attention)."""
+    64, C 8, M 2048, H 1408), and (bf16) on the routed decode buffers of
+    both models; attention at the training shape, with a window, with GQA
+    and at head dim 128 (the serving path does not run it: prefill keeps
+    the blockwise attention)."""
     rows = []
     for dtype in ("bfloat16", "float32"):
         for case, t in (("train", 2048), ("serve_decode", 8),
@@ -482,10 +540,17 @@ def train_kernel_cases(torch) -> list:
         # DeepSeek-V2-Lite's experts at the decode/prefill capacity
         rows.append(check_grouped(torch, "deepseek", 64, 8, 2048, 1408, True,
                                   "silu", dtype, seed=10 * len(rows)))
-        for case, kv, window, lib in (("train", 8, 0, True),
-                                      ("window256", 8, 256, False),
-                                      ("gqa4", 2, 0, False)):
-            rows.append(check_flash(torch, case, 8, 1024, 8, kv, 96, window,
+        if dtype == "bfloat16":   # one decode step's dispatch buffer
+            for case, arch in (("routed_decode_moe", "moe-gpt3-s"),
+                               ("routed_decode_deepseek", DEEPSEEK)):
+                rows.append(check_routed(torch, case, arch,
+                                         seed=10 * len(rows)))
+        for case, b, hq, kv, d, window, lib in (
+                ("train", 8, 8, 8, 96, 0, True),
+                ("window256", 8, 8, 8, 96, 256, False),
+                ("gqa4", 8, 8, 2, 96, 0, False),
+                ("d128", 4, 16, 16, 128, 0, True)):
+            rows.append(check_flash(torch, case, b, 1024, hq, kv, d, window,
                                     dtype, seed=10 * len(rows),
                                     library=lib))
         torch.cuda.empty_cache()
@@ -564,7 +629,9 @@ def serve_sample(run: int, engine, host: dict) -> dict:
 def profile_decode(torch, engine, steps: int = 10) -> dict:
     """Trace ``steps`` decode steps of a full batch (8 fresh requests,
     prefilled first) with ``torch.profiler``: wall time per step, device
-    kernel time per step, and the kernels that take the most of it."""
+    kernel time per step, the expert FFN's device time per step and its
+    share (its kernels' names carry ``grouped_ffn``), and the kernels
+    that take the most of it."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import RequestState
     batch = [engine.submit(p, max_new_tokens=m)
@@ -593,10 +660,14 @@ def profile_decode(torch, engine, steps: int = 10) -> dict:
         raise AssertionError("the profiler saw no device time in 3 traces")
     engine.run_until_idle()
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    ffn_s = sum(e.self_device_time_total for e in kernels
+                if "grouped_ffn" in e.key) / 1e6
     return dict(
         steps=steps, wall_ms_per_step=wall / steps * 1e3,
         device_ms_per_step=device_s / steps * 1e3,
         device_busy_share=device_s / wall,
+        grouped_ffn_ms_per_step=ffn_s / steps * 1e3,
+        grouped_ffn_share_of_device=ffn_s / device_s,
         kernels_per_step=sum(e.count for e in kernels) / steps,
         top=[dict(name=e.key[:60],
                   ms_per_step=e.self_device_time_total / 1e3 / steps,

@@ -3,7 +3,9 @@
 ``flash_attention(q, k, v, causal=, window=)`` launches the hand-written
 CUDA kernel (``csrc/flash_attention.cu``) on CUDA tensors or raises, and
 takes the plain version (``ref.py``) on CPU tensors; it never falls back
-from one to the other.
+from one to the other. In bf16 the kernel keeps each warp's scores,
+probabilities and running output in registers (``mma.sync`` tensor-core
+products, head dims up to 128); fp32 runs on the CUDA cores.
 
 The gradient: the forward saves q, k and v (not the output or the
 scores); the backward recomputes attention through the plain version in
@@ -38,6 +40,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.flash_attention_smem_bytes.restype = ctypes.c_size_t
         lib.flash_attention_smem_limit.argtypes = [ctypes.c_int]
         lib.flash_attention_smem_limit.restype = ctypes.c_size_t
+        lib.flash_attention_max_d.argtypes = [ctypes.c_int]
+        lib.flash_attention_max_d.restype = ctypes.c_int
     return lib
 
 
@@ -65,6 +69,10 @@ def _launch(q, k, v, causal: bool, window: int):
                          f"of 16, got {d}")
     lib = _bind(build.load("flash_attention"))
     dtype = _DTYPES[q.dtype]
+    max_d = lib.flash_attention_max_d(dtype)
+    if max_d and d > max_d:
+        raise ValueError(f"the {q.dtype} kernel takes head dims up to "
+                         f"{max_d}, got {d}")
     smem = lib.flash_attention_smem_bytes(d, dtype)
     dev = q.device.index
     if dev not in _SMEM_LIMIT:

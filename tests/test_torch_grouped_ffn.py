@@ -9,8 +9,10 @@ gated and not, with each activation, within atol 1e-5 (rtol 1e-5): the
 frameworks sum in a different order. Gradients through the port's
 autograd Function are held against ``jax.grad`` through the JAX custom
 VJP within rtol 1e-4, atol 1e-5 (the limits of the JAX package's own
-gradient test are 1e-4). The CUDA kernel itself is held against the
-plain version on the card (``test_torch_train_cuda.py``).
+gradient test are 1e-4). Every activation the kernel takes maps 0 to
+0, which its zero-expert skip rests on. The CUDA kernel itself is held
+against the plain version on the card (``test_torch_train_cuda.py``,
+``test_torch_grouped_ffn_cuda.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -87,3 +89,14 @@ def test_gradients_match_jax_custom_vjp(gated, act):
     for a, b in zip(want, got):
         np.testing.assert_allclose(np.asarray(a), b.numpy(), rtol=1e-4,
                                    atol=1e-5)
+
+
+def test_every_kernel_activation_maps_zero_to_zero():
+    """The bf16 kernel writes an idle expert's rows as 0 without reading
+    its weights, which equals the plain version only while act(0) = 0 for
+    every activation the kernel takes; the wrapper refuses the others."""
+    from repro_torch.kernels.grouped_ffn import ops
+    assert ops._ZERO_TO_ZERO == set(ops._ACT_IDS)
+    for act in ops._ACT_IDS:
+        assert grouped_ffn_ref(torch.zeros(1, 2, 16), torch.ones(1, 16, 16),
+                               None, torch.ones(1, 16, 16), act).eq(0).all()
