@@ -14,7 +14,8 @@ order; any failure ends the run with a non-zero exit and no result line:
    and bf16, each case timed (device time from ``torch.profiler``) beside
    its plain version, its bound and, where one PyTorch call computes the
    same function, that call: paged decode at the serving engine's shapes
-   and one memory-bound GQA shape, with and without a window; the MLA
+   and one memory-bound GQA shape, with and without a window, and a
+   capacity case (G 8, D 128, 16,384 tokens a slot); the MLA
    latent decode at DeepSeek-V2-Lite's engine shape (8 slots, 32 pages of
    16) and at 32 slots x 4096 tokens; the top-k router at its training
    and serving shapes and at DeepSeek-V2-Lite's k 6 (indices equal,
@@ -129,6 +130,10 @@ def kernel_cases(torch):
                extra=[2, 0, 1, 0, 1, 3, 0, 1])
     gqa = dict(b=32, kv=8, g=4, d=128, ps=16, np_=256, lens=[4096] * 32,
                extra=[0] * 32)
+    # capacity: G 8, D 128 at 16,384 tokens a slot; the kernel's shared
+    # memory does not grow with the context
+    cap = dict(b=4, kv=2, g=8, d=128, ps=16, np_=1024, lens=[16384] * 4,
+               extra=[0] * 4)
     cases = []
     for dtype in ("bfloat16", "float32"):
         for window in (0, 100):
@@ -136,6 +141,9 @@ def kernel_cases(torch):
                                     window=window, seed=len(cases), **eng))
         cases.append(paged_case(torch, "gqa_4k", dtype=dtype, window=0,
                                 seed=len(cases), **gqa))
+    for dtype in ("bfloat16", "float32"):   # after, so the others keep seeds
+        cases.append(paged_case(torch, "capacity_16k", dtype=dtype,
+                                window=0, seed=len(cases), **cap))
     return cases
 
 
@@ -191,6 +199,7 @@ def cuda_ms(torch, fn, iters: int) -> tuple:
 def check_paged_decode(torch, case):
     from repro_torch.kernels.paged_attention import (
         paged_decode_attention, paged_decode_attention_ref)
+    from repro_torch.kernels.paged_attention.ops import paged_decode_splits
     from repro_torch.kernels.paged_attention.ref import tolerance
     q, kp, vp = case["q"], case["k_pool"], case["v_pool"]
     pt, lens, w = case["page_table"], case["lens"], case["window"]
@@ -220,6 +229,7 @@ def check_paged_decode(torch, case):
     row = dict(case=case["name"], dtype=case["dtype"], window=w,
                shape=dict(B=b, Kv=kv, G=hq // kv, D=d,
                           ps=kp.shape[1], NP=pt.shape[1]),
+               splits=paged_decode_splits(q, kp, pt, window=w),
                max_abs_err=err, tol=tol,
                max_abs_ref=ref.float().abs().max().item(),
                ms=ms, plain_ms=plain_ms, bound_ms=bms,
@@ -284,6 +294,8 @@ def check_mla(torch, case) -> dict:
     at the dtype's peak plus the fp32 PV sum at the fp32 peak."""
     from repro_torch.kernels.paged_attention import (paged_mla_decode,
                                                      paged_mla_decode_ref)
+    from repro_torch.kernels.paged_attention.ops import \
+        paged_mla_decode_splits
     from repro_torch.kernels.paged_attention.ref import tolerance_mla
     qa, qr, cp, kp = case["q_abs"], case["q_rope"], case["ckv"], case["kr"]
     pt, lens, scale = case["page_table"], case["lens"], case["scale"]
@@ -315,6 +327,7 @@ def check_mla(torch, case) -> dict:
         tol, out, kernel, plain, bound, iters=50,
         shape=dict(B=b, H=h, R=r, E=e, ps=cp.shape[1], NP=pt.shape[1],
                    visible_tokens=toks),
+        splits=paged_mla_decode_splits(qa, qr, cp, pt),
         max_abs_ref=ref.abs().max().item())
 
 
@@ -629,9 +642,10 @@ def serve_sample(run: int, engine, host: dict) -> dict:
 def profile_decode(torch, engine, steps: int = 10) -> dict:
     """Trace ``steps`` decode steps of a full batch (8 fresh requests,
     prefilled first) with ``torch.profiler``: wall time per step, device
-    kernel time per step, the expert FFN's device time per step and its
-    share (its kernels' names carry ``grouped_ffn``), and the kernels
-    that take the most of it."""
+    kernel time per step, the expert FFN's and the paged decode
+    attention's device time per step and share (their kernels' names
+    carry ``grouped_ffn`` and ``paged_``), and the kernels that take the
+    most of it."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import RequestState
     batch = [engine.submit(p, max_new_tokens=m)
@@ -662,12 +676,16 @@ def profile_decode(torch, engine, steps: int = 10) -> dict:
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     ffn_s = sum(e.self_device_time_total for e in kernels
                 if "grouped_ffn" in e.key) / 1e6
+    attn_s = sum(e.self_device_time_total for e in kernels
+                 if "paged_" in e.key) / 1e6
     return dict(
         steps=steps, wall_ms_per_step=wall / steps * 1e3,
         device_ms_per_step=device_s / steps * 1e3,
         device_busy_share=device_s / wall,
         grouped_ffn_ms_per_step=ffn_s / steps * 1e3,
         grouped_ffn_share_of_device=ffn_s / device_s,
+        paged_attention_ms_per_step=attn_s / steps * 1e3,
+        paged_attention_share_of_device=attn_s / device_s,
         kernels_per_step=sum(e.count for e in kernels) / steps,
         top=[dict(name=e.key[:60],
                   ms_per_step=e.self_device_time_total / 1e3 / steps,

@@ -30,13 +30,13 @@ GARBAGE = 3.0e4  # sink / stale page fill; finite but loud if it leaks
 
 
 def _setup_mla(rng, lens, extra_pages, *, heads, rank, rope, ps, np_,
-               q_scale=1.0):
+               q_scale=1.0, fill=GARBAGE):
     """(q_abs [B, 1, H, R], q_rope [B, 1, H, E], ckv_pool [P, ps, R],
     kr_pool [P, ps, E], page_table [B, NP] int32, lens [B] int32) as
     numpy: slot b holds ``pages_for(lens[b] + 1) + extra_pages[b]``
     distinct pages; the sink (page 0), the extra pages and the positions
-    past ``lens`` in the last used page hold ``GARBAGE``; unallocated
-    entries point at the sink."""
+    past ``lens`` in the last used page hold ``fill`` (``GARBAGE``);
+    unallocated entries point at the sink."""
     b = len(lens)
     owned = [-(-(n + 1) // ps) + e for n, e in zip(lens, extra_pages)]
     assert all(o <= np_ for o in owned)
@@ -49,11 +49,11 @@ def _setup_mla(rng, lens, extra_pages, *, heads, rank, rope, ps, np_,
         pt[i, :o] = np.arange(nxt, nxt + o)
         used = -(-(n + 1) // ps)
         for pool in (ckv, kr):
-            pool[nxt + used:nxt + o] = GARBAGE
-            pool[nxt + used - 1, (n + 1) - (used - 1) * ps:] = GARBAGE
+            pool[nxt + used:nxt + o] = fill
+            pool[nxt + used - 1, (n + 1) - (used - 1) * ps:] = fill
         nxt += o
-    ckv[0] = GARBAGE
-    kr[0] = GARBAGE
+    ckv[0] = fill
+    kr[0] = fill
     q_abs = (rng.standard_normal((b, 1, heads, rank)) * q_scale)
     q_rope = (rng.standard_normal((b, 1, heads, rope)) * q_scale)
     return (q_abs.astype(np.float32), q_rope.astype(np.float32), ckv, kr, pt,
@@ -100,6 +100,106 @@ def test_mla_kernel_matches_plain(dtype, heads, rank, rope, ps, np_, lens,
     assert torch.isfinite(out).all()
     tol = tolerance_mla(qa[:, 0], qr[:, 0], cp, kp, pt, ln, scale=scale)
     assert (out - ref).abs().max().item() <= tol
+
+
+def _check_mla(arrs, dtype, *, clean=None):
+    """The MLA kernel against its plain version within ``tolerance_mla``,
+    one counted launch; ``clean`` (the same inputs without NaNs) feeds
+    the plain version and the limit where the pools hold NaN outside the
+    visible range. Returns the worst error's share of the limit."""
+    from repro_torch.kernels.paged_attention import (paged_mla_decode,
+                                                     paged_mla_decode_ref)
+    from repro_torch.kernels.paged_attention.ref import tolerance_mla
+    rank, rope = arrs[0].shape[-1], arrs[1].shape[-1]
+    scale = (rank // 4 + rope) ** -0.5
+
+    def on_card(a):
+        qa, qr, cp, kp = (torch.from_numpy(x).to("cuda", dtype)
+                          for x in a[:4])
+        return qa, qr, cp, kp, *(torch.from_numpy(x).cuda() for x in a[4:])
+    qa, qr, cp, kp, pt, ln = on_card(arrs)
+    build.reset_launches()
+    out = paged_mla_decode(qa, qr, cp, kp, pt, ln, scale=scale)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["paged_mla_decode"] == 1
+    if clean is not None:
+        qa, qr, cp, kp, pt, ln = on_card(clean)
+    ref = paged_mla_decode_ref(qa[:, 0], qr[:, 0], cp, kp, pt, ln,
+                               scale=scale)[:, None]
+    assert out.dtype == torch.float32 and out.shape == qa.shape
+    assert torch.isfinite(out).all()
+    tol = tolerance_mla(qa[:, 0], qr[:, 0], cp, kp, pt, ln, scale=scale)
+    err = (out - ref).abs().max().item()
+    assert err <= tol
+    return err / tol
+
+
+def _mla_splits(b, heads, rank, rope, ps, np_, dtype):
+    from repro_torch.kernels.paged_attention.ops import \
+        paged_mla_decode_splits
+    qa = torch.zeros((b, 1, heads, rank), dtype=dtype, device="cuda")
+    qr = torch.zeros((b, 1, heads, rope), dtype=dtype, device="cuda")
+    cp = torch.zeros((1, ps, rank), dtype=dtype, device="cuda")
+    pt = torch.zeros((b, np_), dtype=torch.int32, device="cuda")
+    splits = paged_mla_decode_splits(qa, qr, cp, pt)
+    t = ps * np_
+    return splits, -(-(-(-t // splits)) // 32) * 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,rank,rope", [(16, 512, 64), (4, 16, 8)])
+def test_mla_split_and_tile_edges(dtype, heads, rank, rope):
+    """Positions 0, on a tile edge and either side, on a split edge and
+    either side, and the table's last."""
+    _cuda()
+    ps, np_ = 16, 32
+    splits, tps = _mla_splits(9, heads, rank, rope, ps, np_, dtype)
+    assert splits > 1, "the case must split the keys"
+    full = ps * np_ - 1
+    lens = [0, 30, 31, 32, tps - 2, tps - 1, tps, full - 1, full]
+    rng = np.random.default_rng(rank)
+    _check_mla(_setup_mla(rng, lens, [0] * len(lens), heads=heads, rank=rank,
+                          rope=rope, ps=ps, np_=np_), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [1, 5, 8, 15])
+def test_mla_fewer_heads(dtype, heads):
+    """H < 16 at DeepSeek-V2-Lite's widths: the missing heads' rows are
+    zero and never written."""
+    _cuda()
+    rng = np.random.default_rng(heads)
+    _check_mla(_setup_mla(rng, [0, 511, 37, 200], [1, 0, 2, 0],
+                          heads=heads, rank=512, rope=64, ps=16, np_=32),
+               dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_one_slot_16k(dtype):
+    """B 1 x 16,384 positions: many splits of one slot."""
+    _cuda()
+    rng = np.random.default_rng(16384)
+    _check_mla(_setup_mla(rng, [16383], [0], heads=16, rank=512, rope=64,
+                          ps=16, np_=1024), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_nan_sink_and_stale_pages(dtype):
+    """NaN in the sink page, grown-ahead pages and the positions past
+    each slot's length: the output stays finite and within the limit of
+    the plain version on the same inputs with those positions at 0."""
+    _cuda()
+    lens, extra = [0, 511, 37, 200, 15, 16], [2, 0, 1, 0, 1, 3]
+    kw = dict(heads=16, rank=512, rope=64, ps=16, np_=32)
+    arrs = _setup_mla(np.random.default_rng(3), lens, extra, fill=np.nan,
+                      **kw)
+    clean = _setup_mla(np.random.default_rng(3), lens, extra, fill=0.0,
+                       **kw)
+    _check_mla(arrs, dtype, clean=clean)
 
 
 @pytest.mark.cuda
