@@ -19,7 +19,13 @@ order; any failure ends the run with a non-zero exit and no result line:
    latent decode at DeepSeek-V2-Lite's engine shape (8 slots, 32 pages of
    16) and at 32 slots x 4096 tokens; the top-k router at its training
    and serving shapes and at DeepSeek-V2-Lite's k 6 (indices equal,
-   probabilities within 1e-6); the expert FFN at the training chunk and
+   probabilities within 1e-6), and its fused route-and-plan launch at
+   every MoE chunk shape of the main paths, with the path's capacity and
+   a tight one (indices, destinations and flags equal, probabilities
+   within 1e-6, the serving statistics within 1e-6 relative), each fp32
+   row beside the device ms and launches of the routing it replaced
+   (``route`` then ``dispatch_plan``) and of ``route_and_plan``; the
+   expert FFN at the training chunk and
    the serving capacity, gated silu, a ragged C and DeepSeek-V2-Lite's
    M 2048, and on two dispatch buffers that the port's own route ->
    dispatch_plan -> dispatch builds from 8 seeded decode tokens
@@ -37,7 +43,8 @@ order; any failure ends the run with a non-zero exit and no result line:
    have launched once per attention layer of every decode step, and the
    router and expert-FFN kernels once per MoE layer of every chunk (one
    a decode step, ``n`` a prefill step); then a
-   ``torch.profiler`` trace of 10 full-batch decode steps;
+   ``torch.profiler`` trace of 10 full-batch decode steps (with the
+   CUDA launches of one MoE layer);
 5. kernel vs gather: equal greedy decode tokens at full width, 2
    layers, fp32;
 6. serve DeepSeek-V2-Lite: full width and depth (27 layers, 16.2 B
@@ -165,12 +172,30 @@ def bound_ms(case) -> tuple:
     return roof(nbytes, flops, case["dtype"])
 
 
+def device_profile(torch, fn, iters: int) -> tuple:
+    """(device ms, CUDA launches) per call of ``fn``, from
+    ``torch.profiler``: the summed time of the kernels it launches."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):         # a trace now and then comes back empty
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev = sum(e.self_device_time_total for e in kernels)
+        if dev > 0:
+            return dev / 1e3 / iters, sum(e.count for e in kernels) / iters
+        log("device_profile: the profiler saw no device time; again")
+    raise AssertionError("the profiler saw no device time in 3 traces")
+
+
 def cuda_ms(torch, fn, iters: int) -> tuple:
     """(device ms, wall ms) per call of ``fn``: the summed time of the
     CUDA kernels it launches, from ``torch.profiler``, and CUDA-event time
     over back-to-back calls, which includes any host time the device
     waits out (Python wrapper, launch)."""
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -182,18 +207,7 @@ def cuda_ms(torch, fn, iters: int) -> tuple:
     end.record()
     torch.cuda.synchronize()
     wall = start.elapsed_time(end) / iters
-    for _ in range(3):         # a trace now and then comes back empty
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        dev = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-        if dev > 0:
-            return dev / 1e3 / iters, wall
-        log("cuda_ms: the profiler saw no device time; tracing again")
-    raise AssertionError("the profiler saw no device time in 3 traces")
+    return device_profile(torch, fn, iters)[0], wall
 
 
 def check_paged_decode(torch, case):
@@ -401,6 +415,136 @@ def check_topk(torch, case, t, e, k, dtype, seed):
         lambda: topk_router(logits, k), lambda: topk_router_ref(logits, k),
         roof(t * e * item + t * k * 8, 5 * t * e, "float32"),
         shape=dict(T=t, E=e, k=k))
+
+
+def route_inputs(torch, arch, t, seed, train):
+    """One MoE chunk's router inputs at ``arch``'s full width: bf16 tokens
+    ``[T, M]`` and fp32 gate weights (scale 0.02, under autograd when
+    ``train``), and the config."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    e = cfg.moe.num_experts
+    params = {"w_gate": randn(torch, (cfg.d_model, e), seed + 1, 0.02)
+              .requires_grad_(train)}
+    if cfg.moe.gate_bias:
+        params["b_gate"] = torch.zeros(e, device="cuda")
+    return cfg, randn(torch, (t, cfg.d_model), seed, dtype="bfloat16"), params
+
+
+def route_paths(torch, arch, t, cap, seed, train) -> dict:
+    """Device ms and CUDA launches per call of an MoE chunk's routing at
+    ``arch``'s width, gate product included, in the grad mode of its main
+    path (autograd when ``train``, else none): ``parent``, the parent's
+    ``route`` (softmax, the top-k launch, the aux ops) then
+    ``dispatch_plan``; ``chunk``, ``route_and_plan`` (one router launch,
+    plus in training the aux ops autograd needs), where the port has it.
+    Both must give the same destinations, and in serving aux losses within
+    rtol 1e-5."""
+    from repro_torch.moe import dispatch as D
+    from repro_torch.moe import router as R
+    cfg, tokens, params = route_inputs(torch, arch, t, seed, train)
+    e = cfg.moe.num_experts
+
+    def parent():
+        _, idx, aux = R.route(params, tokens, cfg)
+        return D.dispatch_plan(idx, e, cap)[0], aux
+
+    def chunk():
+        _, _, dest, aux = R.route_and_plan(params, tokens, cfg, cap)
+        return dest, aux
+
+    out = {}
+    with torch.enable_grad() if train else torch.no_grad():
+        fns = {"parent": parent}
+        if hasattr(R, "route_and_plan"):
+            fns["chunk"] = chunk
+            (d0, a0), (d1, a1) = parent(), chunk()
+            if not torch.equal(d0, d1):
+                raise AssertionError(f"route_and_plan {arch} T {t}: dest "
+                                     f"differs from route + dispatch_plan")
+            for key in a0:
+                if not math.isclose(a0[key].item(), a1[key].item(),
+                                    rel_tol=1e-5, abs_tol=1e-7):
+                    raise AssertionError(f"route_and_plan {arch} T {t}: "
+                                         f"{key} {a1[key].item()} vs "
+                                         f"{a0[key].item()}")
+        for name, fn in fns.items():
+            out[f"{name}_ms"], out[f"{name}_launches"] = device_profile(
+                torch, fn, 20)
+    return out
+
+
+def check_route_plan(torch, case, arch, t, cap, dtype, seed, train):
+    """The fused route-and-plan launch against its plain version on one MoE
+    chunk's gate logits (cast to ``dtype``) at ``arch``'s width:
+    indices, destinations and flags equal; probabilities within 1e-6; in
+    serving (``train`` False, as on that path) the statistics too, within
+    1e-6 relative. Timed beside its plain version and its bound (logits
+    read; probabilities, indices, destinations, flags and statistics
+    written), and, for fp32 logits (the path's), beside ``route_paths``."""
+    from repro_torch.kernels.topk_router import route_plan, route_plan_ref
+    cfg, tokens, params = route_inputs(torch, arch, t, seed, False)
+    m = cfg.moe
+    e, k = m.num_experts, m.top_k
+    logits = (tokens.float() @ params["w_gate"]).to(getattr(torch, dtype))
+    kw = dict(stats=not train, aux_loss_weight=m.aux_loss_weight,
+              z_loss_weight=m.z_loss_weight)
+    got = route_plan(logits, k, cap, **kw)
+    want = route_plan_ref(logits, k, cap, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("idx", "dest", "valid"), got[1:4], want[1:4]):
+        if not torch.equal(a, b):
+            bad = (a != b).reshape(t, -1).any(-1).nonzero().flatten()
+            raise AssertionError(f"route_plan {case} {dtype}: {name} differs "
+                                 f"in rows {bad[:20].tolist()}")
+    rel = 0.0
+    if kw["stats"]:
+        if not torch.equal(got[4]["primary_count"], want[4]["primary_count"]):
+            raise AssertionError(f"route_plan {case} {dtype}: counts differ")
+        for key in ("prob_sum", "z_sq_sum", "aux_loss", "z_loss"):
+            a, b = got[4][key].double(), want[4][key].double()
+            rel = max(rel, ((a - b).abs() / b.abs()).max().item())
+        if not rel <= 1e-6:
+            raise AssertionError(f"route_plan {case} {dtype}: statistics "
+                                 f"{rel:.3g} off, relative")
+    item = logits.element_size()
+    out_bytes = t * k * (4 + 4 + 4 + 1) + (4 * (2 * e + 3) if kw["stats"]
+                                           else 0)
+    paths = (route_paths(torch, arch, t, cap, seed, train)
+             if dtype == "float32" else {})
+    return kernel_row(
+        "topk_router", f"plan_{case}", dtype, (got[0] - want[0]).abs(), 1e-6,
+        got[0], lambda: route_plan(logits, k, cap, **kw),
+        lambda: route_plan_ref(logits, k, cap, **kw),
+        roof(t * e * item + out_bytes, 5 * t * e, "float32"),
+        shape=dict(T=t, E=e, k=k, C=cap, stats=kw["stats"]),
+        dropped=int((~got[3]).sum()), stats_max_rel_err=rel, **paths)
+
+
+# each MoE chunk's routing on the main paths: (case, arch, tokens, train)
+ROUTE_SHAPES = (("train", "moe-gpt3-s", 2048, True),
+                ("serve_decode", "moe-gpt3-s", 8, False),
+                ("serve_prefill", "moe-gpt3-s", 16, False),
+                ("deepseek_decode", "deepseek-v2-lite-16b", 8, False),
+                ("deepseek_prefill", "deepseek-v2-lite-16b", 16, False),
+                ("deepseek_t64", "deepseek-v2-lite-16b", 64, False))
+
+
+def route_plan_cases(torch) -> list:
+    """``check_route_plan`` at every shape of ``ROUTE_SHAPES``, with the
+    path's capacity (``capacity_for``) and a tight one (an eighth of it,
+    at least 1: routes drop), bf16 and fp32 logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline_moe import capacity_for
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        for case, arch, t, train in ROUTE_SHAPES:
+            m = get_config(arch).moe
+            cap = capacity_for(t, m.top_k, m.capacity_factor, m.num_experts)
+            for c, tag in ((cap, ""), (max(1, cap // 8), "_tight")):
+                rows.append(check_route_plan(torch, case + tag, arch, t, c,
+                                             dtype, 100 + len(rows), train))
+    return rows
 
 
 def check_grouped(torch, case, e, c, m, h, gated, act, dtype, seed):
@@ -639,13 +783,29 @@ def serve_sample(run: int, engine, host: dict) -> dict:
                 preempt_recompute=s["preempt_recompute"])
 
 
+def moe_layer_kernels(torch, engine) -> float:
+    """CUDA launches of one MoE layer in a decode step: the engine's first
+    MoE layer, as ``moe.layer.apply`` runs it in decode mode without
+    autograd, on one token per slot."""
+    from repro_torch.moe import layer as moe_layer
+    cfg = engine.cfg
+    i = next(j for j, r in enumerate(cfg.layer_roles()) if r["moe"])
+    params = engine.params["periods"][0][f"l{i}"]["moe"]
+    x = randn(torch, (engine.kv.max_slots, 1, cfg.d_model), 9,
+              dtype=cfg.compute_dtype)
+    with torch.no_grad():
+        return device_profile(torch, lambda: moe_layer.apply(
+            params, x, cfg=cfg, mode="decode"), 5)[1]
+
+
 def profile_decode(torch, engine, steps: int = 10) -> dict:
     """Trace ``steps`` decode steps of a full batch (8 fresh requests,
     prefilled first) with ``torch.profiler``: wall time per step, device
     kernel time per step, the expert FFN's and the paged decode
     attention's device time per step and share (their kernels' names
-    carry ``grouped_ffn`` and ``paged_``), and the kernels that take the
-    most of it."""
+    carry ``grouped_ffn`` and ``paged_``), the kernels that take the
+    most of it, and the CUDA launches of one MoE layer
+    (``moe_layer_kernels``)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import RequestState
     batch = [engine.submit(p, max_new_tokens=m)
@@ -687,6 +847,7 @@ def profile_decode(torch, engine, steps: int = 10) -> dict:
         paged_attention_ms_per_step=attn_s / steps * 1e3,
         paged_attention_share_of_device=attn_s / device_s,
         kernels_per_step=sum(e.count for e in kernels) / steps,
+        kernels_per_moe_layer=moe_layer_kernels(torch, engine),
         top=[dict(name=e.key[:60],
                   ms_per_step=e.self_device_time_total / 1e3 / steps,
                   calls_per_step=e.count / steps) for e in top])
@@ -973,6 +1134,7 @@ def main() -> int:
     kernel_rows += [check_mla(torch, c) for c in mla_cases(torch)]
     torch.cuda.empty_cache()
     kernel_rows += train_kernel_cases(torch)
+    kernel_rows += route_plan_cases(torch)
 
     # -- 4. serve -----------------------------------------------------------
     cfg = serve_config()
@@ -1052,7 +1214,8 @@ def main() -> int:
         "call attends over a page table), paged_mla_decode (no single "
         "call attends over a page table whose keys are latents shared by "
         "the heads), topk_router (softmax then "
-        "torch.topk is two calls, and topk promises no tie order) and "
+        "torch.topk is two calls, topk promises no tie order, and the "
+        "dispatch plan is a sort and more) and "
         "grouped_ffn (no single call runs a per-expert GEMM -> activation "
         "-> GEMM); flash_attention's is scaled_dot_product_attention "
         "(is_causal), a yardstick the port never calls")
@@ -1066,8 +1229,9 @@ def main() -> int:
         entry("grouped_ffn", "grouped_ffn/csrc/grouped_ffn.cu",
               "grouped_ffn/kernel.py:61", head("grouped_ffn")),
         entry("topk_router", "topk_router/csrc/topk_router.cu",
-              "topk_router/kernel.py:42", head("topk_router", "train",
-                                               "float32")),
+              "topk_router/kernel.py:42", head("topk_router", "plan_train",
+                                               "float32"),
+              entry="route_plan: probs, idx, dest and valid in one launch"),
         entry("flash_attention", "flash_attention/csrc/flash_attention.cu",
               "flash_attention/kernel.py:67", head("flash_attention")),
     ]}), flush=True)

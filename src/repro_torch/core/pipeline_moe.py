@@ -56,13 +56,12 @@ def strategy_of(cfg: ArchConfig) -> Strategy:
 
 def _chunk_fn(params, chunk: torch.Tensor, stash=None, *, cfg: ArchConfig,
               cap: int):
-    """route -> dispatch -> expert FFN -> combine (one device). ``stash``
-    holds ``T_DI`` between the forward pass and its recompute under
-    S1/S3 (``strategies.restore_t_di``)."""
+    """route and plan (one router launch) -> dispatch -> expert FFN ->
+    combine (one device). ``stash`` holds ``T_DI`` between the forward
+    pass and its recompute under S1/S3 (``strategies.restore_t_di``)."""
     m = cfg.moe
     t = chunk.shape[0]
-    probs, eidx, aux = R.route(params["router"], chunk, cfg)
-    dest, _ = D.dispatch_plan(eidx, m.num_experts, cap)
+    probs, _, dest, aux = R.route_and_plan(params["router"], chunk, cfg, cap)
     buf = restore_t_di(                                    # [E, cap, M]
         chunk, dest, lambda: D.dispatch(chunk, dest, m.num_experts, cap),
         stash)

@@ -6,26 +6,20 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.topk_router.ref import plan_ref
+
 
 def dispatch_plan(expert_idx: torch.Tensor, num_experts: int,
                   capacity: int):
     """expert_idx ``[T, k]`` -> (dest ``[T*k]`` int32, valid ``[T*k]``).
 
     ``dest[t*k+j]`` is the flat position in the ``[E*C]`` buffer that
-    route j of token t writes to; overflow routes get ``E*C``.
+    route j of token t writes to; overflow routes get ``E*C``. The MoE
+    chunk takes its plan from the router's launch
+    (``router.route_and_plan``); this is the same arithmetic in PyTorch,
+    the router kernel's plain version.
     """
-    t, k = expert_idx.shape
-    flat_e = expert_idx.reshape(-1).long()
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
-    first = torch.searchsorted(sorted_e, sorted_e, side="left")
-    rank = torch.arange(t * k, device=flat_e.device) - first
-    valid_sorted = rank < capacity
-    dest_sorted = torch.where(valid_sorted, sorted_e * capacity + rank,
-                              num_experts * capacity)
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(t * k, device=flat_e.device)
-    return dest_sorted[inv].to(torch.int32), valid_sorted[inv]
+    return plan_ref(expert_idx, num_experts, capacity)
 
 
 def dispatch(tokens: torch.Tensor, dest: torch.Tensor, num_experts: int,

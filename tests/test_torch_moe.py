@@ -91,6 +91,44 @@ def test_route_matches_including_ties(top_k):
         _close(aj[key], at[key])
 
 
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_route_and_plan_matches_route_then_dispatch_plan(top_k):
+    """``route_and_plan`` without autograd (serving): one router launch
+    gives what the JAX ``route`` and ``dispatch_plan`` give, and the aux
+    losses built from its statistics agree with the JAX ones; under
+    autograd its aux losses are ``route``'s PyTorch terms."""
+    jcfg, tcfg = _cfgs()
+    jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe,
+                                                             top_k=top_k))
+    tcfg = dataclasses.replace(tcfg, moe=dataclasses.replace(tcfg.moe,
+                                                             top_k=top_k))
+    r = _rng(16)
+    p = _moe_params(jcfg, r)["router"]
+    p["w_gate"][:, 2] = p["w_gate"][:, 1]    # experts 1 and 2 always tie
+    x = r.standard_normal((20, 64)).astype(np.float32)
+    x[:4] = 0.0                              # all four experts tie here
+    cap = 4                                  # tight: some routes drop
+    pj, ij, dj, aj = jax.jit(lambda p_, x_: (
+        lambda o: (o[0], o[1], jdisp.dispatch_plan(o[1], 4, cap)[0], o[2]))(
+            jrouter.route(p_, x_, jcfg)))(_j(p), jnp.asarray(x))
+    with torch.no_grad():
+        pt, it, dt_, at = trouter.route_and_plan(_t(p), torch.from_numpy(x),
+                                                 tcfg, cap)
+    np.testing.assert_array_equal(np.asarray(ij), it.numpy())
+    np.testing.assert_array_equal(np.asarray(dj), dt_.numpy())
+    assert (dt_.numpy() == 4 * cap).any()    # overflow row used
+    _close(pj, pt)
+    for key in ("aux_loss", "z_loss"):
+        _close(aj[key], at[key])
+    wt = _t(p)
+    wt["w_gate"].requires_grad_(True)
+    pg, ig, dg, ag = trouter.route_and_plan(wt, torch.from_numpy(x), tcfg,
+                                            cap)
+    assert ag["aux_loss"].requires_grad and torch.equal(dg, dt_)
+    for key in ("aux_loss", "z_loss"):
+        _close(aj[key], ag[key])
+
+
 @pytest.mark.parametrize("k", [1, 2])
 def test_dispatch_plan_dispatch_combine(k):
     r = _rng(7)
@@ -141,3 +179,28 @@ def test_pipelined_moe(n, mode):
         _close(aj[key], at[key])
     assert tpipe._resolve_partitions(tcfg, 16, mode) == \
         jpipe._resolve_partitions(jcfg, 16, mode)
+
+
+def test_pipelined_moe_under_autograd():
+    """The train path of ``_chunk_fn``: with the parameters under
+    autograd the router keeps ``route``'s PyTorch aux terms; the output
+    and the aux losses still match the JAX layer."""
+    jcfg, tcfg = _cfgs()
+    jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
+        jcfg.moe, num_partitions=2))
+    tcfg = dataclasses.replace(tcfg, moe=dataclasses.replace(
+        tcfg.moe, num_partitions=2))
+    r = _rng(19)
+    p = _moe_params(jcfg, r)
+    x = r.standard_normal((16, 64)).astype(np.float32)
+    oj, aj = jax.jit(lambda p_, x_: jpipe.pipelined_moe(
+        p_, x_, cfg=jcfg, mode="train"))(_j(p), jnp.asarray(x))
+    tp = _t(p)
+    for leaf in (tp["router"]["w_gate"], *tp["experts"].values()):
+        leaf.requires_grad_(True)
+    ot, at = tpipe.pipelined_moe(tp, torch.from_numpy(x), cfg=tcfg,
+                                 mode="train")
+    assert at["aux_loss"].requires_grad
+    _close(oj, ot)
+    for key in ("aux_loss", "z_loss"):
+        _close(aj[key], at[key])
