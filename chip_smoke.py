@@ -60,10 +60,25 @@ order; any failure ends the run with a non-zero exit and no result line:
    2 under each of S1-S4; every loss finite and each kernel launched
    exactly ``LAUNCHES_PER_STEP`` times a step; step ms, tokens/s, peak
    memory and a profiled step's device-busy share per strategy;
-9. card vs CPU: 3 fp32 steps of 2-layer full-width moe-gpt3-s on the
+9. adaptive (n, strategy): full-width moe-gpt3-s trained by
+   ``runtime.train`` through the online controller over batches of
+   8192, 4096 and 2048 tokens (``ADAPTIVE_TRACE``, a retune timer of 4
+   steps), candidates measured by wall clock on the card beside the
+   analytic core's figures on ``GPU_H100``: the measurement must leave
+   the train state bit-equal, one step function per (n, strategy,
+   shape), launches per step at each step's own n, finite losses; one
+   pipelined MoE layer's memory under NONE and S1-S4 at n 1-8 beside
+   ``MoEMemory``; eta, sigma, the host link's bytes/s and the host time
+   of a launch (``eta_sigma``); ``Engine`` with its adaptive defaults on
+   8 requests, launches per prefill chunk at each bucket's resolved n,
+   and a mid-run wall-clock probe that must write only the sink page;
+10. card vs CPU: 3 fp32 steps of 2-layer full-width moe-gpt3-s on the
    card (kernels) and on the CPU (plain versions), losses within
    ``CARD_VS_CPU_RTOL``;
-10. the ``kernels`` JSON line; 11. the ``ok`` JSON line, last.
+11. the ``kernels`` JSON line; 12. the ``ok`` JSON line, last.
+
+The serving phases 4-7 fix n = 4 (``adaptive=False``, the launcher's
+``--num-partitions 4``), so their numbers compare with earlier runs.
 
 Exits non-zero without CUDA, and in a directory holding this file alone.
 """
@@ -733,8 +748,19 @@ def requests(vocab: int, n: int, seed: int, prompt=(16, 384), gen=(32, 64)):
     return synthetic_requests(n, vocab, prompt, gen, seed)
 
 
+def prefill_chunks(engine, bucket: int) -> int:
+    """MoE chunks of one prefill step of ``bucket`` tokens: the n the
+    engine resolved for the bucket, as ``pipeline_moe._resolve_partitions``
+    runs it."""
+    from repro_torch.core.pipeline_moe import _resolve_partitions
+    n, strategy = engine.adaptive.resolutions[bucket]
+    cfg = dataclasses.replace(engine.cfg, moe=dataclasses.replace(
+        engine.cfg.moe, num_partitions=n, memory_reuse_strategy=strategy))
+    return _resolve_partitions(cfg, bucket, "prefill")
+
+
 def serve(cfg, reqs, *, seed=0, device="cuda", reset=None, engine=None,
-          **opts):
+          on_step=None, **opts):
     """Run ``reqs`` through ``engine`` (default: a fresh ``Engine``), one
     ``step`` at a time; returns it, the requests, the run's host clocks
     and its MoE chunks.
@@ -743,9 +769,8 @@ def serve(cfg, reqs, *, seed=0, device="cuda", reset=None, engine=None,
     the thread waited off-core: for a core, or asleep). The chunks: how
     many times each MoE layer ran a chunk, summed over the steps that
     ran the model (a decode runs one; a prefill of ``bucket`` tokens
-    runs ``pipeline_moe._resolve_partitions`` of them). ``reset`` is
-    called right before the engine runs."""
-    from repro_torch.core.pipeline_moe import _resolve_partitions
+    runs ``prefill_chunks`` of them). ``reset`` is called right before
+    the engine runs, ``on_step(i)`` after its step ``i``."""
     from repro_torch.serve import Engine, EngineOptions
     if engine is None:
         engine = Engine(cfg, options=EngineOptions(device=device, **ENGINE,
@@ -757,10 +782,12 @@ def serve(cfg, reqs, *, seed=0, device="cuda", reset=None, engine=None,
     infos = []
     while engine.has_work:
         infos.append(engine.step())
+        if on_step is not None:
+            on_step(len(infos) - 1)
     host = dict(wall_s=time.perf_counter() - wall,
                 thread_cpu_s=time.thread_time() - cpu)
     chunks = sum(1 if i["kind"] == "decode" else
-                 _resolve_partitions(cfg, i["bucket"], "prefill")
+                 prefill_chunks(engine, i["bucket"])
                  for i in infos if i.get("tokens"))
     for r, (_, m) in zip(handles, reqs):
         if len(r.output) != m:
@@ -903,7 +930,8 @@ def deepseek_phase(torch, build, launcher) -> collections.Counter:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = Engine(cfg, options=EngineOptions(device="cuda",
-                                               attn_kernel="auto", **ENGINE),
+                                               attn_kernel="auto",
+                                               adaptive=False, **ENGINE),
                     seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -947,7 +975,7 @@ def gather_vs_kernel(torch, arch: str) -> None:
     outs = {}
     for kern in ("kernel", "gather"):
         eng, hs, _, _ = serve(cfg, small, attn_kernel=kern,
-                              preempt="recompute")
+                              preempt="recompute", adaptive=False)
         outs[kern] = [list(r.output) for r in hs]
         del eng, hs
     if outs["kernel"] != outs["gather"]:
@@ -1100,6 +1128,415 @@ def card_vs_cpu(torch) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 9: adaptive (n, strategy)
+# ---------------------------------------------------------------------------
+
+ADAPTIVE_TRACE = (8, 4, 8, 2, 8, 4)     # batches of TRAIN_SEQ tokens
+ADAPTIVE_RETUNE_EVERY = 4
+LAYER_TOKENS = 8192                     # the single-layer memory runs
+LAYER_PARTITIONS = (1, 2, 4, 8)
+STRATEGIES = ("none", "s1", "s2", "s3", "s4")
+
+
+def adaptive_config(dtype="bfloat16"):
+    """Full-width moe-gpt3-s with the adaptive placeholders."""
+    from repro_torch.configs import get_config
+    cfg = get_config("moe-gpt3-s")
+    return dataclasses.replace(cfg, compute_dtype=dtype, moe=dataclasses.replace(
+        cfg.moe, num_partitions=0, memory_reuse_strategy="adaptive"))
+
+
+def launches_per_step(cfg, tokens: int, n: int, strategy: str) -> dict:
+    """One train step's launches at a resolved (n, strategy): flash once
+    per attention layer; router and expert FFN once per chunk of every
+    MoE layer, twice under S1-S4 (the checkpoint's recompute)."""
+    from repro_torch.core.pipeline_moe import _resolve_partitions
+    rcfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_partitions=n, memory_reuse_strategy=strategy))
+    chunks = _resolve_partitions(rcfg, tokens, "train")
+    n_moe = cfg.num_periods * sum(r["moe"] for r in cfg.layer_roles())
+    per = n_moe * chunks * (1 if strategy == "none" else 2)
+    return {"flash_attention": cfg.num_layers, "topk_router": per,
+            "grouped_ffn": per}
+
+
+def state_tensors(state) -> list:
+    """Every tensor of a train state: parameters and optimizer state."""
+    out = []
+
+    def walk(x):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k])
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif hasattr(x, "data_ptr"):
+            out.append(x)
+    walk(state["params"])
+    walk(state["opt"])
+    return out
+
+
+def bits(torch, t):
+    """The raw bits of a tensor, for bit-equal comparisons."""
+    t = t.detach()
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def candidate_row(cfg, b: int, n: int, strategy, seconds: float) -> dict:
+    """A measured candidate beside what the analytic core says of the
+    same workload on ``GPU_H100``: the simulator's makespan of one MoE
+    layer and Eq. 10's cost of each strategy, at ep 1."""
+    from repro_torch.core import GPU_H100, all_costs, moe_workload, simulate
+    w = moe_workload(cfg, b, 1, dp=1)
+    return dict(tokens=b, n=n, strategy=strategy.value, ms=seconds * 1e3,
+                simulate_ms=simulate(w, GPU_H100, n, strategy) * 1e3,
+                eq10_ms={k: v * 1e3 for k, v in
+                         all_costs(w, GPU_H100, n).items()})
+
+
+def adaptive_train_phase(torch, build) -> collections.Counter:
+    """Full-width moe-gpt3-s (bf16 compute, fp32 params, AdamW) with the
+    adaptive placeholders, trained by ``runtime.train`` through an
+    ``AdaptiveController(AdaptiveOptions(retune_every=4))`` over
+    ``VaryingSyntheticTokens`` (batches ``ADAPTIVE_TRACE`` x 1024).
+    Checks: the controller measures candidates by wall clock on the
+    card; each measurement leaves the parameters and both AdamW moments
+    bit-equal; one step function per distinct (n, strategy, shape); no
+    more searches than (retune epoch, token count) pairs, and more than
+    the distinct token counts (the timer re-measured under shape churn);
+    finite losses; each step's own launches (measurements apart) match
+    its resolved n. Returns the run's launches, measurements included."""
+    from repro_torch.data import VaryingSyntheticTokens
+    from repro_torch.runtime import (AdaptiveController, AdaptiveOptions,
+                                     TrainOptions, init_state, train)
+    cfg = adaptive_config()
+    opts = TrainOptions(lr=1e-4, warmup=2, total_steps=20)
+    state = init_state(cfg, opts, seed=0)
+    ctl = AdaptiveController(cfg, opts, AdaptiveOptions(
+        retune_every=ADAPTIVE_RETUNE_EVERY))
+    if ctl.resolver.measure_fn != ctl._wallclock_measure:
+        raise AssertionError("the controller does not measure by wall clock")
+    inner, measured, cands = ctl.resolver.measure_fn, collections.Counter(), []
+
+    def measure(b, n, strategy):
+        live = state_tensors(ctl._probe[0])
+        before = [bits(torch, t).clone() for t in live]
+        launched = collections.Counter(build.LAUNCHES)
+        seconds = inner(b, n, strategy)
+        measured.update(collections.Counter(build.LAUNCHES) - launched)
+        if not all(torch.equal(bits(torch, t), x)
+                   for t, x in zip(live, before)):
+            raise AssertionError(f"measuring (b {b}, n {n}, {strategy}) "
+                                 f"wrote the train state")
+        del before
+        cands.append(candidate_row(cfg, b, n, strategy, seconds))
+        return seconds
+
+    ctl.resolver.measure_fn = measure
+    snaps = []
+    src = VaryingSyntheticTokens(cfg, ADAPTIVE_TRACE, seq=TRAIN_SEQ, seed=0)
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    state, hist = train(
+        cfg, steps=len(ADAPTIVE_TRACE), batch_source=src, opts=opts,
+        state=state, adaptive=ctl, heartbeat=lambda s, m: snaps.append(
+            (collections.Counter(build.LAUNCHES),
+             collections.Counter(measured))))
+    torch.cuda.synchronize()
+    total = collections.Counter(build.LAUNCHES)
+    if ctl.resolver.candidates_measured < 1 or not cands:
+        raise AssertionError("no candidate was measured")
+    steps, prev = [], (collections.Counter(), collections.Counter())
+    for h, snap in zip(hist, snaps):
+        tokens = ADAPTIVE_TRACE[h["step"]] * TRAIN_SEQ
+        want = launches_per_step(cfg, tokens, h["n"], h["strategy"])
+        got = {k: (snap[0][k] - prev[0][k]) - (snap[1][k] - prev[1][k])
+               for k in want}
+        if got != want:
+            raise AssertionError(f"adaptive step {h['step']} (n {h['n']}, "
+                                 f"{h['strategy']}): launches {got}, "
+                                 f"expected {want}")
+        if not math.isfinite(h["loss"]):
+            raise AssertionError(f"adaptive step {h['step']}: loss "
+                                 f"{h['loss']}")
+        steps.append(dict(step=h["step"], tokens=tokens, n=h["n"],
+                          strategy=h["strategy"], loss=h["loss"],
+                          step_ms=h["step_time_s"] * 1e3,
+                          retune_ms=h.get("retune_time_s", 0.0) * 1e3,
+                          launches=got))
+        prev = snap
+    keys = {(h["n"], h["strategy"], ADAPTIVE_TRACE[h["step"]]) for h in hist}
+    if ctl.rejit_count != len(keys):
+        raise AssertionError(f"{ctl.rejit_count} step functions built for "
+                             f"{len(keys)} (n, strategy, shape) keys")
+    last, epoch, pairs = 0, 0, set()
+    for s in range(len(ADAPTIVE_TRACE)):
+        if s and s - last >= ADAPTIVE_RETUNE_EVERY:
+            last, epoch = s, epoch + 1
+        pairs.add((epoch, ADAPTIVE_TRACE[s]))
+    calls = ctl.resolver.search_calls
+    if not len(set(ADAPTIVE_TRACE)) < calls <= len(pairs):
+        raise AssertionError(f"{calls} searches for {len(pairs)} (epoch, "
+                             f"tokens) pairs and "
+                             f"{len(set(ADAPTIVE_TRACE))} token counts")
+    row = dict(trace=[b * TRAIN_SEQ for b in ADAPTIVE_TRACE],
+               retune_every=ADAPTIVE_RETUNE_EVERY, measure="wallclock",
+               hw=ctl.aopts.hw.name, rejit_count=ctl.rejit_count,
+               retune_count=ctl.retune_count, search_calls=calls,
+               candidates_measured=ctl.resolver.candidates_measured,
+               retune_s=ctl.resolver.retune_s, steps=steps,
+               measurement_launches=dict(measured),
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    log("adaptive-train " + json.dumps(row))
+    for c in cands:
+        log("adaptive-candidate " + json.dumps(c))
+    del state, ctl
+    torch.cuda.empty_cache()
+    return total
+
+
+def strategy_memory(torch) -> list:
+    """One pipelined MoE layer alone (``core.pipeline_moe``) at
+    moe-gpt3-s width (8192 tokens, bf16 weights and tokens, E 64, M 768,
+    H 3072), forward and backward under NONE and S1-S4 at each n of
+    ``LAYER_PARTITIONS``: the bytes the forward leaves held for the
+    backward (its output apart) and the peak of forward plus backward,
+    both above the allocation at entry, beside ``MoEMemory(b, m, h, e,
+    n, bytes_per=2).totals()``."""
+    from repro_torch.core import MoEMemory, pipelined_moe
+    from repro_torch.models import module
+    from repro_torch.moe import layer as moe_layer
+    cfg = adaptive_config()
+    m = cfg.moe
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = module.build(moe_layer.specs(cfg), gen, "cuda",
+                          leaf_fn=lambda path, x: x.to(torch.bfloat16)
+                          .requires_grad_(True))
+    x = randn(torch, (LAYER_TOKENS, cfg.d_model), 11,
+              dtype="bfloat16").requires_grad_(True)
+    flat = [x] + module.leaves(params)
+    rows = []
+    for strategy in STRATEGIES:
+        for n in LAYER_PARTITIONS:
+            scfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                m, num_partitions=n, memory_reuse_strategy=strategy))
+            torch.cuda.synchronize()
+            entry = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out, aux = pipelined_moe(params, x, cfg=scfg, mode="train")
+            torch.cuda.synchronize()
+            held = (torch.cuda.memory_allocated() - entry
+                    - out.numel() * out.element_size())
+            loss = out.float().square().mean() + sum(aux.values())
+            grads = torch.autograd.grad(loss, flat)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - entry
+            del out, aux, loss, grads
+            pred = MoEMemory(b=LAYER_TOKENS, m=cfg.d_model, h=m.d_expert,
+                             e=m.num_experts, n=n, bytes_per=2).totals()
+            row = dict(strategy=strategy, n=n, tokens=LAYER_TOKENS,
+                       forward_held_bytes=held, peak_bytes=peak,
+                       moememory=pred)
+            log("strategy-memory " + json.dumps(row))
+            rows.append(row)
+    del params, x, flat
+    torch.cuda.empty_cache()
+    return rows
+
+
+def eta_sigma(torch) -> dict:
+    """What one card can measure of the paper's Fig. 3: one train chunk's
+    T_DI (n 4 of 8192 tokens: [64, C, 768] bf16) copied to pinned host
+    memory and back, alone and on a side stream under a running bf16
+    GEMM of the expert shape ([64, C1, 768] x [64, 768, 3072], C1 the
+    capacity of the whole 8192 tokens); the GEMM alone and under a
+    running copy stream. host bytes/s = bytes of the two copies / their
+    time alone; eta_comp = copy time alone / under the GEMM; sigma = GEMM
+    time alone / under the copies. Also the host seconds of one eager
+    launch (``add_`` on one element; the device keeps up). mu (comm under
+    compute) needs a second rank and is not measured."""
+    from repro_torch.core import capacity_for
+    cfg = adaptive_config()
+    m = cfg.moe
+    c4 = capacity_for(LAYER_TOKENS // 4, m.top_k, m.capacity_factor,
+                      m.num_experts)
+    c1 = capacity_for(LAYER_TOKENS, m.top_k, m.capacity_factor,
+                      m.num_experts)
+    t_di = randn(torch, (m.num_experts, c4, cfg.d_model), 1, dtype="bfloat16")
+    back = torch.empty_like(t_di)
+    host = torch.empty(t_di.shape, dtype=t_di.dtype, pin_memory=True)
+    a = randn(torch, (m.num_experts, c1, cfg.d_model), 2, dtype="bfloat16")
+    w = randn(torch, (m.num_experts, cfg.d_model, m.d_expert), 3,
+              dtype="bfloat16", scale=0.03)
+    nbytes = t_di.numel() * t_di.element_size()
+    main, side = torch.cuda.current_stream(), torch.cuda.Stream()
+
+    def copy_pair():
+        host.copy_(t_di, non_blocking=True)
+        back.copy_(host, non_blocking=True)
+
+    def gemm():
+        torch.bmm(a, w)
+
+    def window(stream, fn, reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(stream):
+            start.record(stream)
+            for _ in range(reps):
+                fn()
+            end.record(stream)
+        return start, end
+
+    def ms(ev, reps):
+        return ev[0].elapsed_time(ev[1]) / reps
+
+    for _ in range(3):                                       # warm-up
+        copy_pair()
+        gemm()
+    side.wait_stream(main)
+    torch.cuda.synchronize()
+    alone = window(side, copy_pair, 50)
+    torch.cuda.synchronize()
+    copy_alone = ms(alone, 50)
+    alone = window(main, gemm, 200)
+    torch.cuda.synchronize()
+    gemm_alone = ms(alone, 200)
+    # copies inside a GEMM window about 4x as long as theirs
+    g_reps = max(200, int(4 * 50 * copy_alone / gemm_alone))
+    long_gemm = window(main, gemm, g_reps)
+    copy_under = window(side, copy_pair, 50)
+    torch.cuda.synchronize()
+    # GEMMs inside a copy window about 4x as long as theirs
+    c_reps = max(50, int(4 * 200 * gemm_alone / copy_alone))
+    long_copy = window(side, copy_pair, c_reps)
+    gemm_under = window(main, gemm, 200)
+    torch.cuda.synchronize()
+    nested = [long_gemm[0].elapsed_time(copy_under[0]) >= 0
+              and copy_under[1].elapsed_time(long_gemm[1]) >= 0,
+              long_copy[0].elapsed_time(gemm_under[0]) >= 0
+              and gemm_under[1].elapsed_time(long_copy[1]) >= 0]
+    one = torch.zeros(1, device="cuda")
+    for _ in range(100):
+        one.add_(1.0)
+    torch.cuda.synchronize()
+    reps = 5000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        one.add_(1.0)
+    torch.cuda.synchronize()
+    launch_s = (time.perf_counter() - t0) / reps
+    row = dict(t_di_shape=list(t_di.shape), t_di_bytes=nbytes,
+               gemm_shape=[list(a.shape), list(w.shape)],
+               copy_pair_ms_alone=copy_alone,
+               copy_pair_ms_under_gemm=ms(copy_under, 50),
+               gemm_ms_alone=gemm_alone,
+               gemm_ms_under_copy=ms(gemm_under, 200),
+               windows_nested=nested,
+               host_bytes_per_s=2 * nbytes / (copy_alone / 1e3),
+               eta_comp=copy_alone / ms(copy_under, 50),
+               sigma=gemm_alone / ms(gemm_under, 200),
+               launch_overhead_s=launch_s,
+               mu="not measured: needs a second rank")
+    log("eta-sigma " + json.dumps(row))
+    if not all(nested):
+        raise AssertionError(f"eta/sigma windows did not nest: {row}")
+    del t_di, back, host, a, w
+    torch.cuda.empty_cache()
+    return row
+
+
+def pools_snapshot(torch, engine) -> tuple:
+    """Every pool's non-sink pages (raw bits), the lengths and the page
+    table of an engine."""
+    from repro_torch.models.module import leaves
+    from repro_torch.serve.paged_kv import SINK_PAGE
+    pages = [bits(torch, t[SINK_PAGE + 1:]).clone()
+             for t in leaves(engine.kv.pools)]
+    return pages, engine.kv.lens.copy(), engine.kv.page_table.copy()
+
+
+def adaptive_serve_phase(torch, build) -> collections.Counter:
+    """``Engine`` on full-width moe-gpt3-s in bf16 with its defaults
+    (adaptive, measure auto), 8 seeded requests: it must measure prefill
+    candidates by wall clock on the card; the decode kernel launches
+    once per layer of each decode step, router and expert FFN once per
+    MoE layer of each chunk at each bucket's resolved n (measurements
+    apart); every request completes. Mid-run, a probe of
+    ``_wallclock_measure`` on the live engine must leave every non-sink
+    page, the lengths and the page table bit-equal. Returns the run's
+    launches, measurements included."""
+    from repro_torch.core import Strategy
+    from repro_torch.serve import Engine, EngineOptions
+    cfg = serve_config()
+    engine = Engine(cfg, options=EngineOptions(device="cuda", **ENGINE),
+                    seed=0)
+    if not engine.opts.adaptive or engine.measure != "wallclock":
+        raise AssertionError("the engine does not resolve buckets by wall "
+                             "clock")
+    inner, measured, cands = (engine.adaptive.resolver.measure_fn,
+                              collections.Counter(), [])
+
+    def measure(b, n, strategy):
+        launched = collections.Counter(build.LAUNCHES)
+        seconds = inner(b, n, strategy)
+        measured.update(collections.Counter(build.LAUNCHES) - launched)
+        cands.append(candidate_row(engine.cfg, b, n, strategy, seconds))
+        return seconds
+
+    engine.adaptive.resolver.measure_fn = measure
+    probe = {}
+
+    def on_step(i):
+        if probe or engine.stats()["decode_steps"] < 4:
+            return
+        before = pools_snapshot(torch, engine)
+        launched = collections.Counter(build.LAUNCHES)
+        probe["ms"] = engine._wallclock_measure(ENGINE["chunk"], 2,
+                                                Strategy.S4) * 1e3
+        measured.update(collections.Counter(build.LAUNCHES) - launched)
+        after = pools_snapshot(torch, engine)
+        if not (all(torch.equal(x, y) for x, y in zip(before[0], after[0]))
+                and (before[1] == after[1]).all()
+                and (before[2] == after[2]).all()):
+            raise AssertionError("the wall-clock probe wrote outside the "
+                                 "sink page")
+        probe.update(step=i, pages_checked=engine.kv.num_pages - 1)
+
+    reqs = requests(cfg.vocab_size, 8, seed=7)
+    engine, handles, host, chunks = serve(cfg, reqs, engine=engine,
+                                          reset=build.reset_launches,
+                                          on_step=on_step)
+    total = collections.Counter(build.LAUNCHES)
+    if not probe:
+        raise AssertionError("the probe never ran")
+    check_serve_launches(engine.cfg, engine, total - measured, chunks,
+                         "paged_decode_attention")
+    s = engine.stats()
+    row = dict(arch=cfg.name, dtype=cfg.compute_dtype,
+               requests=s["requests_done"], resolutions=s["resolutions"],
+               search_calls=engine.adaptive.search_calls,
+               candidates_measured=engine.adaptive.resolver
+               .candidates_measured,
+               retune_s=engine.adaptive.resolver.retune_s,
+               prefill_steps=s["prefill_steps"],
+               decode_steps=s["decode_steps"], chunks=chunks,
+               prefill_tok_per_s=s["prefill_tok_per_s"],
+               decode_tok_per_s=s["decode_tok_per_s"],
+               p50_ttft_s=s["p50_ttft_s"], probe=probe,
+               launches=dict(total - measured),
+               measurement_launches=dict(measured), **host)
+    log("adaptive-serve " + json.dumps(row))
+    for c in cands:
+        log("adaptive-serve-candidate " + json.dumps(c))
+    del engine, handles
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1148,7 +1585,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     engine, handles, host, chunks = serve(
         cfg, reqs, preempt="recompute", num_pages=65, attn_kernel="auto",
-        reset=build.reset_launches)
+        adaptive=False, reset=build.reset_launches)
     serve_launches = collections.Counter(build.LAUNCHES)
     launches = serve_launches["paged_decode_attention"]
     check_serve_launches(cfg, engine, serve_launches, chunks,
@@ -1185,11 +1622,18 @@ def main() -> int:
     # -- 8. train -----------------------------------------------------------
     train_rows, train_launches = train_phase(torch, build)
 
-    # -- 9. card vs CPU -----------------------------------------------------
+    # -- 9. adaptive (n, strategy) -----------------------------------------
+    adaptive_launches = adaptive_train_phase(torch, build)
+    strategy_memory(torch)
+    eta_sigma(torch)
+    adaptive_launches += adaptive_serve_phase(torch, build)
+
+    # -- 10. card vs CPU ----------------------------------------------------
     card_vs_cpu(torch)
 
-    # -- 10. kernels line ---------------------------------------------------
-    main_launches = serve_launches + deepseek_launches + train_launches
+    # -- 11. kernels line ---------------------------------------------------
+    main_launches = (serve_launches + deepseek_launches + train_launches
+                     + adaptive_launches)
     def head(kernel, case="train", dtype="bfloat16"):
         return next(r for r in kernel_rows if r["kernel"] == kernel
                     and r["case"] == case and r["dtype"] == dtype
@@ -1236,7 +1680,7 @@ def main() -> int:
               "flash_attention/kernel.py:67", head("flash_attention")),
     ]}), flush=True)
 
-    # -- 11. result ---------------------------------------------------------
+    # -- 12. result ---------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

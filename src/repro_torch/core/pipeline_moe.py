@@ -6,9 +6,11 @@ each chunk is routed, dispatched into an ``[E, C, M]`` buffer (the
 paper's ``T_DI``), run through the expert FFNs and combined, with the
 capacity ``C`` computed from the chunk's token count. In ``mode="train"``
 each chunk runs under the config's memory-reuse strategy
-(``core.strategies``); ``"adaptive"`` runs as ``Strategy.NONE`` and
-``num_partitions`` 0 as n = 4, as in the JAX package when the config
-still holds those placeholders. With one device there are no All-to-
+(``core.strategies``). The adaptive controller and the engine's prefill
+buckets hand this layer a config with a concrete ``(n, strategy)``
+(``core.selector``); a config that still holds the placeholders runs
+``"adaptive"`` as ``Strategy.NONE`` and ``num_partitions`` 0 as n = 4,
+as in the JAX package. With one device there are no All-to-
 Alls; the overlap of chunk i+1's communication under chunk i's expert
 GEMMs and the expert-parallel layouts come with ROADMAP.md's 'Expert
 parallelism' slice.
@@ -48,8 +50,8 @@ def _resolve_partitions(cfg: ArchConfig, t_local: int, mode: str) -> int:
 
 
 def strategy_of(cfg: ArchConfig) -> Strategy:
-    """The config's memory-reuse strategy; ``"adaptive"`` runs as
-    ``NONE`` until the adaptive slice resolves it."""
+    """The config's memory-reuse strategy; an unresolved ``"adaptive"``
+    runs as ``NONE``."""
     s = cfg.moe.memory_reuse_strategy
     return Strategy.NONE if s == "adaptive" else Strategy(s)
 

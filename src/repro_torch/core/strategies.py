@@ -20,7 +20,9 @@ offloaded names go to pinned host memory. Here:
 ``T_M`` is restored by recompute under every strategy: the fused
 ``grouped_ffn`` kernel never writes it, and its backward rebuilds it
 from ``T_DI``. S1/S3 and S2/S4 therefore differ only in how ``T_DI``
-comes back.
+comes back. The analytic core keeps the paper's Q-vectors
+(``types.Q_TABLE``), so Eq. 10's host terms for S1/S2 count ``T_M``
+copies the port never makes.
 
 Offload needs a CUDA tensor: on the CPU the offloaded ``T_DI`` stays
 where it is (``TdiStash.keep``), as the JAX package turns an offload into
@@ -35,6 +37,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.types import Strategy
+
+
+def host_offload_supported() -> bool:
+    """True when a CUDA device is present: an offload goes to pinned host
+    memory (``TdiStash``), which needs one. The counterpart of the JAX
+    package's check for a ``pinned_host`` memory kind."""
+    return torch.cuda.is_available()
 
 
 class TdiStash:

@@ -1,3 +1,3 @@
-from repro_torch.data.synthetic import SyntheticTokens
+from repro_torch.data.synthetic import SyntheticTokens, VaryingSyntheticTokens
 
-__all__ = ["SyntheticTokens"]
+__all__ = ["SyntheticTokens", "VaryingSyntheticTokens"]

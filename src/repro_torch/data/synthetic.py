@@ -1,11 +1,11 @@
 """Deterministic, seekable synthetic token pipeline, a copy of
-``repro.data.synthetic.SyntheticTokens`` (numpy Philox): every batch is
-a pure function of (seed, step, host slice), byte-equal to the JAX
-package's. The audio and vision stub frontends come with ROADMAP.md's
-'Other architectures' slice."""
+``repro.data.synthetic``'s ``SyntheticTokens`` (numpy Philox) and
+``VaryingSyntheticTokens``: every batch is a pure function of (seed,
+step, host slice), byte-equal to the JAX package's. The audio and vision
+stub frontends come with ROADMAP.md's 'Other architectures' slice."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 
@@ -39,3 +39,23 @@ class SyntheticTokens:
         base[:, 1:] = np.where(repeat[:, 1:], (base[:, :-1] + 1) % vocab,
                                base[:, 1:])
         return {"tokens": base[:, :-1], "labels": base[:, 1:].copy()}
+
+
+class VaryingSyntheticTokens:
+    """Seekable source whose per-step batch size follows ``trace``
+    (cycled): traffic whose token count drifts, the workload the online
+    adaptive controller retunes for (each distinct size is a new shape,
+    and possibly a new optimal pipeline granularity)."""
+
+    def __init__(self, cfg: ArchConfig, trace: Sequence[int], seq: int,
+                 seed: int = 0, num_hosts: int = 1, host_index: int = 0):
+        assert trace, "need at least one batch size"
+        self.trace = tuple(int(b) for b in trace)
+        self._sources = {
+            b: SyntheticTokens(cfg, batch=b, seq=seq, seed=seed,
+                               num_hosts=num_hosts, host_index=host_index)
+            for b in set(self.trace)}
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        return self._sources[self.trace[step % len(self.trace)]] \
+            .batch_at(step)

@@ -6,12 +6,15 @@ seeded synthetic prompts.
 
 Submits ``--requests`` prompts of ``--prompt-len`` (a fixed length or a
 ``lo:hi`` range) seeded tokens, each asking ``--gen`` (or ``lo:hi``) new
-tokens, runs the engine (its default options) until idle and prints
-``stats()`` as one JSON line. It runs on the card; ``--device cpu`` runs
-it on the CPU. ``--engine`` is accepted so the JAX launcher's command
-line runs unchanged; the engine is the only serving mode ported. The
-Poisson trace replay, the HTTP ingress and ``/metrics`` of the JAX
-launcher come with ROADMAP.md's later slices.
+tokens, runs the engine (its default options) until idle, prints each
+prefill bucket's resolved ``(n, strategy)`` as the JAX launcher does and
+then ``stats()`` as one JSON line. Prefill ``(n, strategy)`` is resolved
+per bucket (``--hw``, ``--measure``; the JAX launcher's flags) unless
+``--num-partitions N`` fixes n. It runs on the card; ``--device cpu``
+runs it on the CPU. ``--engine`` is accepted so the JAX launcher's
+command line runs unchanged; the engine is the only serving mode
+ported. The Poisson trace replay, the HTTP ingress and ``/metrics`` of
+the JAX launcher come with ROADMAP.md's later slices.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import numpy as np
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.types import HW_SPECS, resolve_hw
 
 
 def _range(text: str) -> Tuple[int, int]:
@@ -35,7 +39,7 @@ def configure(args) -> ArchConfig:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if cfg.moe is None:
+    if cfg.moe is None or args.num_partitions is None:
         return cfg
     return dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, num_partitions=args.num_partitions))
@@ -62,8 +66,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="moe-gpt3-s")
     ap.add_argument("--reduced", action="store_true",
                     help="the config's tiny same-family reduction")
-    ap.add_argument("--num-partitions", type=int, default=4,
-                    help="MoE pipeline chunks n for prefill")
+    ap.add_argument("--num-partitions", type=int, default=None,
+                    help="MoE pipeline chunks n for prefill, fixed "
+                         "(default: resolved per prefill bucket)")
+    ap.add_argument("--hw", default="auto",
+                    choices=["auto"] + sorted(HW_SPECS),
+                    help="hardware spec for the MPipeMoE resolver "
+                         "(auto = gpu-h100 with CUDA, else cpu-host)")
+    ap.add_argument("--measure", default="auto",
+                    choices=["auto", "wallclock", "simulate"],
+                    help="bucket (n, strategy) resolution measure "
+                         "(auto = wallclock on CUDA)")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", default="16:64",
                     help="prompt length, N or LO:HI")
@@ -81,13 +94,18 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     from repro_torch.serve import Engine, EngineOptions
 
     cfg = configure(args)
-    engine = Engine(cfg, options=EngineOptions(device=args.device),
-                    seed=args.seed)
+    hw = resolve_hw(args.hw)
+    print(f"hw spec: {hw.name}", flush=True)
+    engine = Engine(cfg, options=EngineOptions(
+        device=args.device, hw=hw, measure=args.measure,
+        adaptive=args.num_partitions is None), seed=args.seed)
     for prompt, gen in synthetic_requests(
             args.requests, cfg.vocab_size, _range(args.prompt_len),
             _range(args.gen), args.seed):
         engine.submit(prompt, max_new_tokens=gen)
     engine.run_until_idle()
+    for bucket, (n, strat) in sorted(engine.adaptive.resolutions.items()):
+        print(f"  bucket {bucket:4d} -> n={n} strategy={strat}")
     stats = engine.stats()
     stats["arch"] = cfg.name
     print(json.dumps(stats, sort_keys=True))

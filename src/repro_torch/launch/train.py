@@ -5,14 +5,16 @@ synthetic tokens.
         --full --steps 10 --batch 8 --seq 1024
 
 It runs on the card; ``--device cpu`` runs it on the CPU. The flags are
-the subset of the JAX launcher's that this slice supports (with
+the subset of the JAX launcher's that the port supports (with
 ``--device`` as the serving launcher has it); ``--reduced`` (the
 default, as in the JAX launcher) takes the config's tiny CPU-sized
-version and ``--full`` the published widths. MoE configs train with the
-fixed ``(n, strategy)`` the config holds — ``num_partitions`` 0 runs as
-n = 4 and ``"adaptive"`` as ``none`` — printed at start; the offline
-resolver and the online controller of the JAX launcher come with
-ROADMAP.md's 'Adaptive (n, strategy)' slice.
+version and ``--full`` the published widths. As in the JAX launcher, an
+MoE config's ``(n, strategy)`` placeholders are resolved once, offline,
+for ``--batch`` x ``--seq`` tokens on the ``--hw`` spec (Algorithm 1
+with the pipeline simulator, Eq. 10) and printed at start; with
+``--adaptive [--retune-every K]`` the online controller resolves them
+while training instead, and the final ``n``/``strategy`` are printed at
+the end.
 """
 from __future__ import annotations
 
@@ -23,21 +25,26 @@ from typing import List, Optional, Sequence
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.selector import resolve
+from repro_torch.core.types import HW_SPECS, resolve_hw
 from repro_torch.data import SyntheticTokens
-from repro_torch.runtime import TrainOptions, train
+from repro_torch.runtime import AdaptiveOptions, TrainOptions, train
 
 
 def configure(args) -> ArchConfig:
-    """The config with the MoE placeholders made concrete."""
+    """The config, its MoE placeholders resolved offline for one device
+    (``--adaptive``: set to the placeholders for the online
+    controller)."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     if cfg.moe is None:
         return cfg
-    s = cfg.moe.memory_reuse_strategy
-    return dataclasses.replace(cfg, moe=dataclasses.replace(
-        cfg.moe, num_partitions=cfg.moe.num_partitions or 4,
-        memory_reuse_strategy="none" if s == "adaptive" else s))
+    if args.adaptive:
+        return dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, num_partitions=0, memory_reuse_strategy="adaptive"))
+    return resolve(cfg, local_tokens=args.batch * args.seq, ep_size=1,
+                   hw=resolve_hw(args.hw), dp=1)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -52,6 +59,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run on "
                          "the CPU)")
+    ap.add_argument("--hw", default="auto",
+                    choices=["auto"] + sorted(HW_SPECS),
+                    help="hardware spec for the MPipeMoE resolver "
+                         "(auto = gpu-h100 with CUDA, else cpu-host)")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="online (n, strategy) controller instead of a "
+                         "one-shot offline resolve")
+    ap.add_argument("--retune-every", type=int, default=0,
+                    help="with --adaptive: also re-resolve every K steps "
+                         "(0 = only on batch-shape change)")
     return ap
 
 
@@ -60,7 +77,13 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     cfg = configure(args)
-    if cfg.moe is not None:
+    adaptive = False
+    if cfg.moe is not None and args.adaptive:
+        adaptive = AdaptiveOptions(retune_every=args.retune_every,
+                                   hw=resolve_hw(args.hw))
+        print("MPipeMoE: online adaptive (n, strategy) "
+              f"(retune_every={args.retune_every})", flush=True)
+    elif cfg.moe is not None:
         print(f"MPipeMoE: n={cfg.moe.num_partitions} "
               f"strategy={cfg.moe.memory_reuse_strategy}", flush=True)
     ds = SyntheticTokens(cfg, batch=args.batch, seq=args.seq, seed=0)
@@ -69,12 +92,19 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
 
     def heartbeat(step, metrics):
         if step % 10 == 0:
+            extra = (f" n={metrics['n']} strat={metrics['strategy']}"
+                     if "n" in metrics else "")
             print(f"step {step:5d} loss={metrics['loss']:.4f} "
-                  f"t={metrics['step_time_s'] * 1e3:.0f}ms", flush=True)
+                  f"t={metrics['step_time_s'] * 1e3:.0f}ms{extra}",
+                  flush=True)
 
     _, hist = train(cfg, steps=args.steps, batch_source=ds, opts=opts,
-                    heartbeat=heartbeat, adaptive=False, device=args.device)
+                    heartbeat=heartbeat, adaptive=adaptive,
+                    device=args.device)
     print(f"final loss {hist[-1]['loss']:.4f} at step {hist[-1]['step']}")
+    if "n" in hist[-1]:                   # controller engaged (MoE arch)
+        print(f"adaptive: n={hist[-1]['n']} "
+              f"strategy={hist[-1]['strategy']}")
     return hist
 
 

@@ -1,4 +1,7 @@
-from repro_torch.runtime.train_loop import (TrainOptions, init_state,
-                                            make_train_step, train)
+from repro_torch.runtime.train_loop import (AdaptiveController,
+                                            AdaptiveOptions, TrainOptions,
+                                            init_state, make_train_step,
+                                            train)
 
-__all__ = ["TrainOptions", "init_state", "make_train_step", "train"]
+__all__ = ["AdaptiveController", "AdaptiveOptions", "TrainOptions",
+           "init_state", "make_train_step", "train"]

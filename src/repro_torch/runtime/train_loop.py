@@ -1,5 +1,6 @@
-"""Training runtime: state, the train step and the host loop, as the
-static path of ``repro.runtime.train_loop``.
+"""Training runtime: state, the train step, the online adaptive
+``(n, strategy)`` controller and the host loop, as
+``repro.runtime.train_loop``.
 
 Step semantics: fp32 parameters, compute in ``cfg.compute_dtype``, MoE
 auxiliary losses folded into the objective by ``lm.loss_fn``, AdamW with
@@ -7,24 +8,31 @@ the linear-warmup cosine schedule. PyTorch runs eagerly, so there is no
 jit: ``make_train_step`` returns a plain function, and its update writes
 the state's parameters and moments in place (``optim.adamw``).
 
-Not ported yet, each raising ``NotImplementedError``: the online
-``(n, strategy)`` controller (``adaptive=True``, or ``None`` with a
-config that still holds the adaptive placeholders — ROADMAP.md's
-'Adaptive (n, strategy)' slice), int8 gradient compression (the 'Expert
-parallelism' slice) and checkpoint/restart (ROADMAP.md Queue 1,
-'Checkpointing').
+Online adaptation (paper §III-C Algorithm 1 + §III-E): when the config
+leaves ``num_partitions == 0`` or ``memory_reuse_strategy ==
+"adaptive"``, an :class:`AdaptiveController` resolves the concrete
+(n, strategy) at runtime — on every batch-shape change and, optionally,
+every ``retune_every`` steps — through a persistent
+``core.selector.Resolver``, and builds a step only when the resolved
+(n, strategy, batch shape) key is new (an LRU of step functions).
+
+Not ported yet, each raising ``NotImplementedError``: int8 gradient
+compression (ROADMAP.md's 'Expert parallelism' slice) and
+checkpoint/restart (ROADMAP.md Queue 1, 'Checkpointing').
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.selector import Resolver
+from repro_torch.core.types import GPU_H100, HardwareSpec, Strategy
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.models.module import leaves
@@ -138,17 +146,195 @@ def make_train_step(cfg: ArchConfig, opts: TrainOptions) -> Callable:
     return train_step
 
 
-def _check_static(cfg: ArchConfig, adaptive) -> None:
-    if adaptive is None:
-        adaptive = cfg.moe is not None and cfg.moe.pipeline and (
-            cfg.moe.num_partitions == 0
-            or cfg.moe.memory_reuse_strategy == "adaptive")
-    if adaptive:
-        raise NotImplementedError(
-            "the online (n, strategy) controller comes with ROADMAP.md's "
-            "'Adaptive (n, strategy)' slice; pass adaptive=False to train "
-            "with the config's fixed n (0 runs as 4) and strategy "
-            "('adaptive' runs as none)")
+# ---------------------------------------------------------------------------
+# Online adaptive (n, strategy) controller
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class AdaptiveOptions:
+    """Knobs of the online controller (paper §III-C + §III-E).
+
+    retune_every == 0 retunes only on batch-shape change; k > 0 also
+    re-runs ``resolve`` every k steps (workload drift without shape
+    drift — e.g. interference from a colocated job).
+    ``measure``: "wallclock" times a few candidate steps' gradients on
+    the training device, "simulate" uses the analytic pipeline
+    simulator, "auto" picks wallclock iff the state lies on a CUDA
+    device.
+    """
+    retune_every: int = 0
+    ep_size: int = 1
+    dp: int = 1
+    hw: HardwareSpec = GPU_H100
+    measure: str = "auto"            # auto | wallclock | simulate
+    measure_fn: Optional[Callable[[int, int, Strategy], float]] = None
+    measure_steps: int = 2
+    allow_offload: Optional[bool] = None
+    candidates: Optional[Sequence[int]] = None
+    cache_size: int = 32             # LRU bound on kept step functions
+
+
+StepParts = Tuple[Callable, Callable]     # (grads_of, update)
+
+
+class AdaptiveController:
+    """Feedback loop between the granularity searcher, the perf model and
+    the step function: resolves (n, strategy) online and keeps an LRU of
+    step functions keyed by (n, strategy, batch shape), so a step is
+    built at most once per distinct configuration while it stays cached
+    (``rejit_count`` counts the builds, under the JAX package's name).
+
+    ``device`` is the training device; it is read only to resolve
+    ``measure="auto"`` (``None``: the card, raising without CUDA).
+    """
+
+    def __init__(self, cfg: ArchConfig, opts: TrainOptions,
+                 aopts: Optional[AdaptiveOptions] = None, *,
+                 device=None):
+        if cfg.moe is None or not cfg.moe.pipeline:
+            # with pipeline=False every candidate n runs as n=1 — the
+            # granularity search would be meaningless
+            raise ValueError("AdaptiveController needs a pipelined MoE "
+                             "config (cfg.moe with pipeline=True)")
+        self.cfg = cfg
+        self.opts = opts
+        self.aopts = aopts or AdaptiveOptions()
+        measure_fn = self.aopts.measure_fn
+        if measure_fn is None:
+            mode = self.aopts.measure
+            if mode == "auto":
+                mode = ("wallclock" if resolve_device(device).type == "cuda"
+                        else "simulate")
+            if mode not in ("wallclock", "simulate"):
+                raise ValueError(f"measure must be auto, wallclock or "
+                                 f"simulate, not {mode!r}")
+            if mode == "wallclock":
+                measure_fn = self._wallclock_measure
+        self.resolver = Resolver(cfg, ep_size=self.aopts.ep_size,
+                                 hw=self.aopts.hw, measure_fn=measure_fn,
+                                 dp=self.aopts.dp,
+                                 allow_offload=self.aopts.allow_offload,
+                                 candidates=self.aopts.candidates)
+        self._step_cache: Dict[Tuple, StepParts] = {}
+        self._probe = None               # (state, batch) for wallclock
+        self._last_shape = None
+        self._last_refresh = None
+        self.current: Optional[Tuple[int, str]] = None
+        self.rejit_count = 0
+        self.retune_count = 0
+
+    def _cache_get(self, key: Tuple) -> Optional[StepParts]:
+        """LRU: dicts iterate in insertion order; re-insert on hit."""
+        fn = self._step_cache.pop(key, None)
+        if fn is not None:
+            self._step_cache[key] = fn
+        return fn
+
+    def _cache_put(self, key: Tuple, fn: StepParts) -> None:
+        self._step_cache[key] = fn
+        while len(self._step_cache) > max(1, self.aopts.cache_size):
+            self._step_cache.pop(next(iter(self._step_cache)))
+
+    @staticmethod
+    def _shape_key(batch) -> Tuple:
+        return tuple(sorted((k, tuple(v.shape), str(v.dtype))
+                            for k, v in batch.items()))
+
+    @staticmethod
+    def _local_tokens(batch) -> int:
+        x = batch["tokens"] if "tokens" in batch else \
+            next(iter(batch.values()))
+        return int(x.shape[0]) * (int(x.shape[1]) if x.ndim > 1 else 1)
+
+    def _cfg_with(self, n: int, strategy: str) -> ArchConfig:
+        return dataclasses.replace(
+            self.cfg, moe=dataclasses.replace(
+                self.cfg.moe, num_partitions=n,
+                memory_reuse_strategy=strategy))
+
+    def _wallclock_measure(self, b: int, n: int,
+                           strategy: Strategy) -> float:
+        """Algorithm 1's measure function on the training device: the
+        seconds of candidate (n, strategy)'s loss and backward,
+        ``grads_of(params, batch)`` of ``_step_parts``, on the live
+        (state, batch). ``b`` equals the probe batch's token count by
+        construction (the searcher is queried at the current size).
+
+        The JAX package times whole jitted steps against an undonated
+        state. Here the update writes the parameters and AdamW moments
+        in place, and a copy of the state is as large as the state, so
+        the update is left out: it is the same work for every candidate
+        and does not move the argmin. ``grads_of`` writes nothing. One
+        warm-up call, then ``measure_steps`` calls, each call's
+        gradients freed before the next; timed with CUDA events on the
+        current stream on the card, with the host clock on the CPU."""
+        state, batch = self._probe
+        grads_of, _ = _step_parts(self._cfg_with(n, strategy.value),
+                                  self.opts)
+        params = state["params"]
+
+        def once():
+            grads, metrics = grads_of(params, batch)
+            del grads, metrics
+
+        reps = max(1, self.aopts.measure_steps)
+        once()                                     # warm-up
+        if leaves(params)[0].device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                once()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / 1e3 / reps
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            once()
+        return (time.perf_counter() - t0) / reps
+
+    def step_fn(self, state, batch, step: int
+                ) -> Tuple[StepParts, Dict[str, Any]]:
+        """The step's halves ``(grads_of, update)`` (``_step_parts``) and
+        the controller's metrics for this batch."""
+        shape = self._shape_key(batch)
+        shape_changed = self.current is None or shape != self._last_shape
+        # timer fires on its own clock, independent of shape churn — a
+        # cyclic-shape trace must not starve drift re-measurement
+        timer = (self.aopts.retune_every > 0
+                 and self._last_refresh is not None
+                 and step - self._last_refresh >= self.aopts.retune_every)
+        info: Dict[str, Any] = {}
+        if shape_changed or timer:
+            t0 = time.perf_counter()
+            self._probe = (state, batch)
+            # a timer-triggered retune re-measures (refresh): cached
+            # timings are exactly what workload drift invalidates
+            try:
+                rcfg = self.resolver.resolve(self._local_tokens(batch),
+                                             refresh=timer)
+            finally:
+                self._probe = None
+            resolved = (rcfg.moe.num_partitions,
+                        rcfg.moe.memory_reuse_strategy)
+            if resolved != self.current:
+                log.info("adaptive retune @%d: (n, strategy) %s -> %s",
+                         step, self.current, resolved)
+            self.current = resolved
+            self._last_shape = shape
+            if timer or self._last_refresh is None:
+                self._last_refresh = step
+            self.retune_count += 1
+            info["retune_time_s"] = time.perf_counter() - t0
+        n, strategy = self.current
+        key = (n, strategy, shape)
+        fn = self._cache_get(key)
+        if fn is None:
+            fn = _step_parts(self._cfg_with(n, strategy), self.opts)
+            self._cache_put(key, fn)
+            self.rejit_count += 1
+        info.update(n=n, strategy=strategy)
+        return fn, info
 
 
 def train(cfg: ArchConfig, *, steps: int, batch_source,
@@ -156,19 +342,24 @@ def train(cfg: ArchConfig, *, steps: int, batch_source,
           max_retries: int = 2,
           heartbeat: Optional[Callable[[int, Dict], None]] = None,
           state=None, adaptive=None, device=None):
-    """Run ``steps`` training steps on the static path.
+    """Run ``steps`` training steps.
 
     ``batch_source.batch_at(step)`` must be deterministic (seekable).
-    ``adaptive`` must resolve to the static path: ``False``, or ``None``
-    with a config whose ``num_partitions`` and ``memory_reuse_strategy``
-    are concrete. A step whose loss or backward pass fails is retried up
+    ``adaptive`` selects the online (n, strategy) controller: ``None``
+    turns it on when cfg.moe still carries adaptive placeholders
+    (``num_partitions == 0`` or ``memory_reuse_strategy ==
+    "adaptive"``); ``False`` forces the static path (the placeholders
+    then run as n = 4 and ``none``, as in the JAX package); an
+    :class:`AdaptiveOptions` tunes the controller, and a pre-built
+    :class:`AdaptiveController` is used as given (callers inspect its
+    counters). A step whose loss or backward pass fails is retried up
     to ``max_retries`` times: that half writes nothing. A failure in or
     after the optimizer update raises, since the update writes the
     parameters and moments in place and there is no checkpoint to go
-    back to. Returns (final state, history list of
-    metric dicts, each with its ``step`` and ``step_time_s``)."""
+    back to. Returns (final state, history list of metric dicts, each
+    with its ``step`` and ``step_time_s``, and with the controller its
+    ``n``, ``strategy`` and, on a retune, ``retune_time_s``)."""
     opts = opts or TrainOptions()
-    _check_static(cfg, adaptive)
     if checkpointer is not None:
         raise NotImplementedError(
             "checkpoint/restart is not ported yet (ROADMAP.md Queue 1, "
@@ -176,7 +367,19 @@ def train(cfg: ArchConfig, *, steps: int, batch_source,
     if state is None:
         state = init_state(cfg, opts, seed=0, device=device)
     dev = leaves(state["params"])[0].device
-    grads_of, update = _step_parts(cfg, opts)
+    controller = None
+    if isinstance(adaptive, AdaptiveController):
+        controller = adaptive
+    elif adaptive is None:
+        if cfg.moe is not None and cfg.moe.pipeline and (
+                cfg.moe.num_partitions == 0
+                or cfg.moe.memory_reuse_strategy == "adaptive"):
+            controller = AdaptiveController(cfg, opts, device=dev)
+    elif adaptive:
+        aopts = adaptive if isinstance(adaptive, AdaptiveOptions) else None
+        controller = AdaptiveController(cfg, opts, aopts, device=dev)
+    if controller is None:
+        grads_of, update = _step_parts(cfg, opts)
 
     history = []
     step = 0                 # as the JAX loop without a checkpoint
@@ -185,6 +388,10 @@ def train(cfg: ArchConfig, *, steps: int, batch_source,
         attempt = 0
         while True:
             try:
+                ainfo: Dict[str, Any] = {}
+                if controller is not None:
+                    (grads_of, update), ainfo = controller.step_fn(
+                        state, batch, step)
                 t0 = time.perf_counter()
                 grads, metrics = grads_of(state["params"], batch)
                 break
@@ -196,6 +403,7 @@ def train(cfg: ArchConfig, *, steps: int, batch_source,
         state, metrics = update(state, grads, metrics)
         del grads
         metrics["step_time_s"] = time.perf_counter() - t0
+        metrics.update(ainfo)
         history.append({"step": step, **metrics})
         if heartbeat is not None:
             heartbeat(step, metrics)

@@ -12,7 +12,8 @@
 ``request.py``     :class:`Request` / :class:`RequestState`
 ``sampling.py``    greedy / temperature / top-k / top-p with seeded
                    per-request streams; host-side stop matching
-``adaptive.py``    prefill bucketing (``bucket_of``)
+``adaptive.py``    prefill bucketing and per-bucket adaptive
+                   (n, strategy): :class:`PrefillBucketAdaptive`
 """
 from repro_torch.serve.engine import Engine, EngineOptions
 from repro_torch.serve.paged_kv import PagedKVCache

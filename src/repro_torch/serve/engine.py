@@ -15,27 +15,40 @@ hand-written CUDA paged-decode kernel, ``"gather"`` the gather baseline,
 and ``"auto"`` picks ``"kernel"`` on CUDA and ``"gather"`` on the CPU
 (where the JAX engine picks its Pallas kernel on a TPU).
 
+Prefill ``(n, strategy)`` per bucket (``EngineOptions.adaptive``, on
+by default as in the JAX engine): each bucket's config is resolved once
+by ``serve.adaptive.PrefillBucketAdaptive`` — Eq. 10 for the strategy
+(inert at serving time), Algorithm 1 for ``n`` — measuring candidates by
+wall clock on the card (``_wallclock_measure``: the candidate chunk runs
+on the live pools with every KV write sent to the sink page) or with the
+pipeline simulator on the CPU (``measure="auto"``). ``adaptive=False``
+keeps the config's ``num_partitions``. PyTorch runs eagerly, so there is
+no compile cache: an LRU of ``cache_size`` prefill step functions keyed
+by (bucket, n, strategy) stands where the JAX engine keeps its compiled
+steps.
+
 Options of the JAX engine whose feature is not ported yet raise
 ``NotImplementedError`` naming the ROADMAP.md slice that brings it;
-none is accepted and then ignored. PyTorch runs eagerly, so there is no
-compile cache: each step calls the model functions directly.
+none is accepted and then ignored.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import time
-from typing import Any, Dict, List, Optional, Sequence
+import weakref
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.types import GPU_H100, HardwareSpec, Strategy
 from repro_torch.device import dtype_of, resolve_device
 from repro_torch.models import lm
 from repro_torch.models.layers.attention import ATTN_KERNELS as _KERNELS
 from repro_torch.models.module import leaves
-from repro_torch.serve.adaptive import bucket_of
+from repro_torch.serve.adaptive import PrefillBucketAdaptive, force_adaptive
 from repro_torch.serve.paged_kv import PagedKVCache
 from repro_torch.serve.request import Request, RequestState
 from repro_torch.serve.sampling import SamplingParams, sample_tokens
@@ -64,11 +77,18 @@ class EngineOptions:
     num_pages: int = 0                 # 0 = auto (worst case + sink page)
     chunk: int = 64                    # prefill chunk (tokens per step)
     min_bucket: int = 8
+    hw: HardwareSpec = GPU_H100        # the resolver's device model
+    ep_size: int = 1                   # resolver hints (one device:
+    dp: int = 1                        # no expert or data parallelism)
+    cache_size: int = 16               # LRU bound on prefill step fns
+    adaptive: bool = True              # resolve (n, strategy) per bucket
+    measure: str = "auto"              # auto | wallclock | simulate
+    measure_steps: int = 2             # wallclock reps per candidate
+    measure_fn: Optional[Callable] = None
     preempt: str = "recompute"         # recompute | never
     attn_kernel: str = "auto"          # auto | kernel | gather
     device: Optional[str] = None       # None = cuda (raises without CUDA)
     # not ported yet: each raises NotImplementedError when set
-    adaptive: bool = False
     prefix_cache: str = "off"
     devices: int = 0
 
@@ -86,10 +106,8 @@ class EngineOptions:
             raise ValueError(f"preempt must be one of {PREEMPT_POLICIES}")
         if self.attn_kernel not in ATTN_KERNELS:
             raise ValueError(f"attn_kernel must be one of {ATTN_KERNELS}")
-        if self.adaptive:
-            raise NotImplementedError(
-                "adaptive (n, strategy) prefill resolution comes with "
-                "ROADMAP.md's 'Adaptive prefill buckets' slice")
+        if self.measure not in ("auto", "wallclock", "simulate"):
+            raise ValueError("measure must be auto, wallclock or simulate")
         if self.prefix_cache != "off":
             raise NotImplementedError(
                 "the prefix cache comes with ROADMAP.md's 'Prefix cache "
@@ -110,6 +128,8 @@ class Engine:
         if self.attn_kernel == "auto":
             self.attn_kernel = ("kernel" if self.device.type == "cuda"
                                 else "gather")
+        if opts.adaptive:
+            cfg = force_adaptive(cfg)
         self.cfg = cfg
         if params is None:       # never the fp32 tree beside its copy
             self.params = lm.init_compute(cfg, seed, device=self.device)
@@ -127,7 +147,25 @@ class Engine:
             device=self.device)
         self.scheduler = Scheduler(self.kv, chunk=opts.chunk,
                                    full_reserve=(opts.preempt == "never"))
-        self.min_bucket = min(opts.min_bucket, opts.chunk)
+        measure_fn = opts.measure_fn
+        mode = opts.measure
+        if mode == "auto":
+            mode = "wallclock" if self.device.type == "cuda" else "simulate"
+        self.measure = "custom" if measure_fn is not None else mode
+        if self.measure == "wallclock":
+            # through a weak reference: the resolver must not keep the
+            # engine, its params and its pools alive in a reference cycle
+            engine = weakref.ref(self)
+
+            def measure_fn(b: int, n: int, strategy: Strategy) -> float:
+                return engine()._wallclock_measure(b, n, strategy)
+        self.adaptive = PrefillBucketAdaptive(
+            cfg, hw=opts.hw, ep_size=opts.ep_size, dp=opts.dp,
+            min_bucket=min(opts.min_bucket, opts.chunk),
+            max_bucket=opts.chunk, measure_fn=measure_fn,
+            shards=opts.ep_size)
+        self._prefill_fns: Dict[Tuple, Callable] = {}
+        self.prefill_builds = 0
         self._sinks = self.kv.device_sinks()
         self._next_rid = 0
         self.step_count = 0
@@ -159,6 +197,63 @@ class Engine:
     @property
     def has_work(self) -> bool:
         return self.scheduler.has_work
+
+    # -- prefill step functions ------------------------------------------
+    def _prefill_fn(self, bucket: int, rcfg: ArchConfig) -> Callable:
+        """The prefill step of one (bucket, n, strategy), from an LRU of
+        ``cache_size`` entries (dicts iterate in insertion order)."""
+        key = (bucket, rcfg.moe.num_partitions,
+               rcfg.moe.memory_reuse_strategy) if rcfg.moe else (bucket,)
+        fn = self._prefill_fns.pop(key, None)
+        if fn is None:
+            params = self.params              # not self: no cycle
+
+            def fn(pools, page_table, pos0, tokens, valid_len, sink):
+                return lm.prefill_chunk_paged(
+                    params, pools, page_table, pos0, tokens, valid_len,
+                    rcfg, write_sink=sink)
+            self.prefill_builds += 1
+        self._prefill_fns[key] = fn
+        while len(self._prefill_fns) > max(1, self.opts.cache_size):
+            self._prefill_fns.pop(next(iter(self._prefill_fns)))
+        return fn
+
+    def _wallclock_measure(self, b: int, n: int,
+                           strategy: Strategy) -> float:
+        """Algorithm 1's measure function for prefill buckets: the
+        seconds of a ``b``-token prefill chunk under candidate (n,
+        strategy), run on the live pools through a page-table row that
+        maps every position to the sink page (and with the sink as the
+        masked-write target), so every KV write lands in the sink: no
+        other page, no length and no page-table row changes. One warm-up
+        call, then ``measure_steps`` timed calls: CUDA events on the
+        current stream on the card, the host clock on the CPU."""
+        rcfg = dataclasses.replace(
+            self.cfg, moe=dataclasses.replace(
+                self.cfg.moe, num_partitions=n,
+                memory_reuse_strategy=strategy.value))
+        fn = self._prefill_fn(b, rcfg)
+        kv = self.kv
+        args = (kv.sink_page_table(),
+                torch.zeros((1,), dtype=torch.int32, device=self.device),
+                torch.zeros((1, b), dtype=torch.int64, device=self.device),
+                b, kv.sink_row(0))
+        reps = max(1, self.opts.measure_steps)
+        with torch.no_grad():
+            fn(kv.pools, *args)                    # warm-up
+            if self.device.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(reps):
+                    fn(kv.pools, *args)
+                end.record()
+                end.synchronize()
+                return start.elapsed_time(end) / 1e3 / reps
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn(kv.pools, *args)
+            return (time.perf_counter() - t0) / reps
 
     # -- preemption ------------------------------------------------------
     def _pick_victim(self) -> Optional[Request]:
@@ -213,15 +308,16 @@ class Engine:
         c = min(self.scheduler.chunk, req.remaining_prefill)
         if not self._ensure(slot, int(kv.lens[slot]) + c):
             return {"tokens": 0, "rid": req.rid, "self_preempted": True}
-        bucket = bucket_of(c, self.min_bucket, self.scheduler.chunk)
+        bucket = self.adaptive.bucket_of(c)
+        fn = self._prefill_fn(bucket, self.adaptive.cfg_for(bucket))
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :c] = req.prefill_tokens[req.prefill_pos:
                                          req.prefill_pos + c]
         with torch.no_grad():
-            logits, kv.pools = lm.prefill_chunk_paged(
-                self.params, kv.pools, kv.device_page_table(slot),
-                kv.device_lens(slot), torch.from_numpy(toks).to(self.device),
-                c, self.cfg, write_sink=kv.sink_row(slot))
+            logits, kv.pools = fn(
+                kv.pools, kv.device_page_table(slot), kv.device_lens(slot),
+                torch.from_numpy(toks).to(self.device), c,
+                kv.sink_row(slot))
             tok = sample_tokens(logits, [req.sampling],
                                 [len(req.output)]).tolist()[0]
         req.prefill_pos += c
@@ -318,4 +414,8 @@ class Engine:
             "resumes": self.scheduler.resume_count,
             "cache_bytes": self.kv.cache_bytes,
             "peak_kv_used_bytes": self.kv.peak_used_bytes,
+            "measure": self.measure,
+            "prefill_builds": self.prefill_builds,
+            "resolutions": {str(b): list(r) for b, r in
+                            self.adaptive.resolutions.items()},
         }

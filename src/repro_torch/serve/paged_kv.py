@@ -145,6 +145,12 @@ class PagedKVCache(StateCache):
     def sink_row(self, slot: int) -> torch.Tensor:
         return self._upload(np.asarray([SINK_PAGE], np.int32))
 
+    def sink_page_table(self) -> torch.Tensor:
+        """A ``[1, max_pages_per_seq]`` page-table row that maps every
+        position to the sink page: a probe's KV writes all land there."""
+        return self._upload(np.full((1, self.max_pages_per_seq), SINK_PAGE,
+                                    np.int32))
+
     # -- accounting ------------------------------------------------------
     @property
     def cache_bytes(self) -> int:

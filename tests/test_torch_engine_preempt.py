@@ -86,7 +86,7 @@ def _port_engine(reference, preempt, pages, attn_kernel="auto"):
     params = convert.from_jax(reference["params"], device="cpu")
     return Engine(_cfg(get_config), params, options=EngineOptions(
         preempt=preempt, num_pages=pages, device="cpu",
-        attn_kernel=attn_kernel, **OPTS))
+        attn_kernel=attn_kernel, adaptive=False, **OPTS))
 
 
 def test_greedy_tokens_equal_jax_engine_through_preemption(reference):

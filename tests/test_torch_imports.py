@@ -89,7 +89,6 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(cfg)
     for bad in (dict(preempt="offload"), dict(preempt="auto"),
-                dict(adaptive=True), dict(prefix_cache="on"),
-                dict(devices=2)):
+                dict(prefix_cache="on"), dict(devices=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             Engine(cfg, options=EngineOptions(device="cpu", **bad))

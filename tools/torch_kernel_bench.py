@@ -135,7 +135,8 @@ def step_group(cs, torch) -> None:
     from repro_torch.serve import Engine, EngineOptions
     for arch in ("moe-gpt3-s", cs.DEEPSEEK):
         engine = Engine(cs.serve_config(arch=arch), options=EngineOptions(
-            device="cuda", attn_kernel="auto", **cs.ENGINE), seed=0)
+            device="cuda", attn_kernel="auto", adaptive=False, **cs.ENGINE),
+            seed=0)
         for run in range(2):
             cs.log(f"decode-profile {arch} run {run} "
                    + json.dumps(cs.profile_decode(torch, engine)))
