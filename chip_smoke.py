@@ -39,22 +39,39 @@ order; any failure ends the run with a non-zero exit and no result line:
    the bf16 rounding of its probabilities, weighted by |v|);
 4. serve: full-width moe-gpt3-s in bf16 through the launcher's ``main``
    and then through ``Engine`` with 16 seeded requests and a page pool
-   small enough to force recompute preemption; the decode kernel must
-   have launched once per attention layer of every decode step, and the
-   router and expert-FFN kernels once per MoE layer of every chunk (one
-   a decode step, ``n`` a prefill step); then a
-   ``torch.profiler`` trace of 10 full-batch decode steps (with the
-   CUDA launches of one MoE layer);
+   small enough to force recompute preemption. Every serve run calls
+   ``Engine.warmup()`` first, which captures the decode step into a CUDA
+   graph: each run must capture once and replay once per decode step,
+   recording one step's launches. The decode kernel must have launched
+   once per attention layer of every decode step, and the router and
+   expert-FFN kernels once per MoE layer of every chunk (one a decode
+   step, ``n`` a prefill step), each replay counted as the launches it
+   recorded; then a ``torch.profiler`` trace of 10 full-batch decode
+   steps (with the host launch calls a step, the CUDA launches of one
+   MoE layer and ``replay_vs_eager``: one replay against one eager step
+   on the same inputs, the same kernels of the port, the recorded
+   launches, logits within 2^-7·max|logit| + 1e-5). Then capture vs
+   eager in turns (4 pairs of the same 16-request run, each mode's
+   10-step profile: decode step ms, tokens/s, busy share, kernels and
+   host launch calls a step), and offload: the same run under
+   ``preempt="offload"`` (at least one offload, each swap's bytes and
+   GB/s) and under ``"auto"`` (each victim's ``PreemptionCost``: its
+   recompute and offload seconds and the choice, which must be the mode
+   applied), and at 2 layers in fp32 the greedy tokens of offload and
+   recompute equal;
 5. kernel vs gather: equal greedy decode tokens at full width, 2
-   layers, fp32;
+   layers, fp32, through the kernel captured and eager and the gather
+   path;
 6. serve DeepSeek-V2-Lite: full width and depth (27 layers, 16.2 B
    parameters) in bf16 through the launcher's ``main``, then through
    ``Engine`` with 8 seeded requests: memory right after the engine's
    init under 40 GB, the MLA kernel launched once per layer of every
    decode step, router and expert FFN once per layer of every MoE chunk,
-   every request complete; a 10-step decode profile;
-7. kernel vs gather, DeepSeek-V2-Lite: equal greedy tokens at full width,
-   2 layers, fp32;
+   every request complete; a 10-step decode profile; capture vs eager in
+   turns (2 pairs); ``preempt="auto"`` with a 48-page pool, each
+   victim's ``PreemptionCost`` (recompute and offload seconds, choice)
+   and the swap bytes and GB/s;
+7. kernel vs gather, DeepSeek-V2-Lite: as 5, at 2 layers;
 8. train: full-width moe-gpt3-s (bf16 compute, fp32 params, AdamW),
    batch 8 x 1024, n = 4, through ``runtime.train``: 6 steps under NONE,
    2 under each of S1-S4; every loss finite and each kernel launched
@@ -769,12 +786,15 @@ def serve(cfg, reqs, *, seed=0, device="cuda", reset=None, engine=None,
     the thread waited off-core: for a core, or asleep). The chunks: how
     many times each MoE layer ran a chunk, summed over the steps that
     ran the model (a decode runs one; a prefill of ``bucket`` tokens
-    runs ``prefill_chunks`` of them). ``reset`` is called right before
-    the engine runs, ``on_step(i)`` after its step ``i``."""
+    runs ``prefill_chunks`` of them). The engine's ``warmup()`` runs
+    first (the decode step's capture, each bucket's resolution); then
+    ``reset`` is called right before the engine serves, ``on_step(i)``
+    after its step ``i``."""
     from repro_torch.serve import Engine, EngineOptions
     if engine is None:
         engine = Engine(cfg, options=EngineOptions(device=device, **ENGINE,
                                                    **opts), seed=seed)
+    engine.warmup()
     handles = [engine.submit(p, max_new_tokens=m) for p, m in reqs]
     if reset is not None:
         reset()
@@ -800,14 +820,17 @@ def serve_sample(run: int, engine, host: dict) -> dict:
     """The end-to-end numbers of one serve run, its host clocks and the
     host's 1-minute load average."""
     s = engine.stats()
-    return dict(run=run, attn_kernel=s["attn_kernel"], **host,
+    return dict(run=run, attn_kernel=s["attn_kernel"],
+                decode_graph=engine.opts.decode_graph, **host,
                 loadavg_1m=os.getloadavg()[0],
                 prefill_tok_per_s=s["prefill_tok_per_s"],
                 decode_tok_per_s=s["decode_tok_per_s"],
                 p50_ttft_s=s["p50_ttft_s"], p50_itl_s=s["p50_itl_s"],
                 p50_decode_step_ms=s["p50_decode_step_s"] * 1e3,
                 decode_steps=s["decode_steps"],
-                preempt_recompute=s["preempt_recompute"])
+                decode_replays=s["decode_replays"],
+                preempt_recompute=s["preempt_recompute"],
+                preempt_offload=s["preempt_offload"])
 
 
 def moe_layer_kernels(torch, engine) -> float:
@@ -825,15 +848,118 @@ def moe_layer_kernels(torch, engine) -> float:
             params, x, cfg=cfg, mode="decode"), 5)[1]
 
 
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch")
+KERNEL_FAMILIES = ("paged_decode_kernel", "paged_mla_", "grouped_ffn_",
+                   "route_plan_kernel")
+
+
+def traced(torch, fn, tries: int = 3):
+    """``fn`` under ``torch.profiler``, until the trace shows device time
+    (a trace now and then comes back empty). Returns the host seconds and
+    the profiler's averages: the CUDA kernels and the host launch calls
+    (``HOST_LAUNCHES``: one ``cudaGraphLaunch`` per replay)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        averages = prof.key_averages()
+        kernels = [e for e in averages
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(e.self_device_time_total for e in kernels) > 0:
+            launches = sum(e.count for e in averages
+                           if e.key in HOST_LAUNCHES)
+            return wall, kernels, launches
+        log("traced: the profiler saw no device time; again")
+    raise AssertionError(f"the profiler saw no device time in {tries} "
+                         f"traces")
+
+
+def families(kernels) -> dict:
+    """CUDA kernels of the port's own, by family (``KERNEL_FAMILIES``)."""
+    out = collections.Counter()
+    for e in kernels:
+        fam = next((f for f in KERNEL_FAMILIES if f in e.key), None)
+        if fam is not None:
+            out[fam] += e.count
+    return dict(out)
+
+
+def replay_vs_eager(torch, engine) -> dict:
+    """On a captured engine whose batch is decoding: one replay of the
+    decode graph and one eager run of the same step on the same inputs
+    (every decoding slot's last token, its page table and length). Each
+    run writes the step's KV position of each slot itself before reading
+    it, so the eager run sees what the replay saw. The replay must run
+    the port's kernels exactly as often as the eager step does, the eager
+    step must make the wrapper calls the capture recorded, and the
+    logits must agree within one bf16 rounding of the largest,
+    2^-7·max|eager| + 1e-5."""
+    import numpy as np
+    from repro_torch.kernels import build
+    step, kv = engine._decode, engine.kv
+    if step.graph is None:
+        raise AssertionError("the engine has no captured decode step")
+    tokens = np.zeros((kv.max_slots, 1), np.int64)
+    active = np.zeros((kv.max_slots,), bool)
+    for s in engine.scheduler.decode_slots():
+        tokens[s, 0] = engine.scheduler.running[s].output[-1]
+        active[s] = True
+    inputs = kv.decode_inputs()
+    step.tokens.refresh(tokens)
+    step.active.refresh(active)
+    out = {}
+
+    def replay():
+        step.graph.replay()
+        build.replayed(step.launches)
+        out["replay"] = step.logits.float().clone()
+
+    def eager():
+        before = collections.Counter(build.LAUNCHES)
+        with torch.no_grad():
+            out["eager"] = step._forward(*inputs).float()
+        out["calls"] = dict(collections.Counter(build.LAUNCHES) - before)
+
+    _, k_replay, l_replay = traced(torch, replay)
+    _, k_eager, l_eager = traced(torch, eager)
+    diff = float((out["replay"] - out["eager"]).abs().max())
+    tol = 2.0 ** -7 * float(out["eager"].abs().max()) + 1e-5
+    row = dict(replay_kernels=families(k_replay),
+               eager_kernels=families(k_eager),
+               replay_kernels_all=sum(e.count for e in k_replay),
+               eager_kernels_all=sum(e.count for e in k_eager),
+               replay_host_launches=l_replay, eager_host_launches=l_eager,
+               recorded=dict(step.launches), eager_calls=out["calls"],
+               logits_max_abs_diff=diff, logits_tol=tol,
+               active_slots=int(active.sum()))
+    if row["replay_kernels"] != row["eager_kernels"] \
+            or not row["replay_kernels"]:
+        raise AssertionError(f"a replay ran other kernels than the eager "
+                             f"step: {row}")
+    if row["eager_calls"] != row["recorded"]:
+        raise AssertionError(f"the capture recorded other launches than "
+                             f"the eager step makes: {row}")
+    if not diff <= tol:
+        raise AssertionError(f"captured logits differ from eager: {row}")
+    return row
+
+
 def profile_decode(torch, engine, steps: int = 10) -> dict:
     """Trace ``steps`` decode steps of a full batch (8 fresh requests,
     prefilled first) with ``torch.profiler``: wall time per step, device
     kernel time per step, the expert FFN's and the paged decode
     attention's device time per step and share (their kernels' names
     carry ``grouped_ffn`` and ``paged_``), the kernels that take the
-    most of it, and the CUDA launches of one MoE layer
-    (``moe_layer_kernels``)."""
-    from torch.profiler import ProfilerActivity, profile
+    most of it, the host launch calls a step (a replay is one
+    ``cudaGraphLaunch`` beside sampling's few launches), the CUDA
+    launches of one MoE layer (``moe_layer_kernels``) and, on a captured
+    engine, ``replay_vs_eager`` of the batch's next step."""
     from repro_torch.serve import RequestState
     batch = [engine.submit(p, max_new_tokens=m)
              for p, m in requests(engine.cfg.vocab_size,
@@ -841,24 +967,16 @@ def profile_decode(torch, engine, steps: int = 10) -> dict:
                                   prompt=(64, 64), gen=(64, 64))]
     while any(r.state != RequestState.DECODE for r in batch):
         engine.step()
-    torch.cuda.synchronize()
-    for _ in range(3):         # a trace now and then comes back empty
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                if engine.step()["kind"] != "decode":
-                    raise AssertionError("profiled step was not a decode")
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        device_s = sum(e.self_device_time_total for e in kernels) / 1e6
-        if device_s > 0:
-            break
-        log("profile_decode: the profiler saw no device time; again")
-    else:
-        raise AssertionError("the profiler saw no device time in 3 traces")
+
+    def run():
+        for _ in range(steps):
+            if engine.step()["kind"] != "decode":
+                raise AssertionError("profiled step was not a decode")
+
+    wall, kernels, launches = traced(torch, run)
+    device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    check = (replay_vs_eager(torch, engine)
+             if engine._decode.graph is not None else None)
     engine.run_until_idle()
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     ffn_s = sum(e.self_device_time_total for e in kernels
@@ -866,7 +984,8 @@ def profile_decode(torch, engine, steps: int = 10) -> dict:
     attn_s = sum(e.self_device_time_total for e in kernels
                  if "paged_" in e.key) / 1e6
     return dict(
-        steps=steps, wall_ms_per_step=wall / steps * 1e3,
+        steps=steps, decode_graph=engine._decode.graph is not None,
+        wall_ms_per_step=wall / steps * 1e3,
         device_ms_per_step=device_s / steps * 1e3,
         device_busy_share=device_s / wall,
         grouped_ffn_ms_per_step=ffn_s / steps * 1e3,
@@ -874,10 +993,86 @@ def profile_decode(torch, engine, steps: int = 10) -> dict:
         paged_attention_ms_per_step=attn_s / steps * 1e3,
         paged_attention_share_of_device=attn_s / device_s,
         kernels_per_step=sum(e.count for e in kernels) / steps,
+        host_launches_per_step=launches / steps,
         kernels_per_moe_layer=moe_layer_kernels(torch, engine),
         top=[dict(name=e.key[:60],
                   ms_per_step=e.self_device_time_total / 1e3 / steps,
-                  calls_per_step=e.count / steps) for e in top])
+                  calls_per_step=e.count / steps) for e in top],
+        replay_vs_eager=check)
+
+
+def check_replays(cfg, engine, attn_kernel) -> None:
+    """One capture per engine, one replay per decode step (the capture
+    is ``warmup``'s), and the launches it recorded are one decode step's:
+    the decode kernel once per attention layer, router and expert FFN
+    once per MoE layer."""
+    s = engine.stats()
+    n_moe = cfg.num_periods * sum(r["moe"] for r in cfg.layer_roles())
+    want = {attn_kernel: cfg.num_layers, "grouped_ffn": n_moe,
+            "topk_router": n_moe}
+    if s["decode_captures"] != 1 or s["decode_replays"] != s["decode_steps"] \
+            or dict(engine._decode.launches) != want:
+        raise AssertionError(f"captures {s['decode_captures']}, replays "
+                             f"{s['decode_replays']} for "
+                             f"{s['decode_steps']} decode steps, recorded "
+                             f"{dict(engine._decode.launches)} != {want}")
+
+
+def capture_vs_eager(torch, build, cfg, reqs, pairs, params, attn_kernel,
+                     tag, **opts) -> dict:
+    """``pairs`` pairs of serve runs of ``reqs`` with the decode step
+    captured and eager, in turns (captured first in even pairs, eager
+    first in odd ones), each on a fresh ``Engine`` over the same
+    ``params``; every run must launch as ``check_serve_launches`` asks,
+    and every captured run must replay as ``check_replays`` asks. Then
+    a 10-step ``profile_decode`` of each mode. Logs a
+    ``capture-vs-eager`` line per run and a ``capture-vs-eager-summary``
+    line; returns the summary."""
+    import gc
+    import statistics
+    from repro_torch.serve import Engine, EngineOptions
+    runs = []
+    for pair in range(pairs):
+        modes = (True, False) if pair % 2 == 0 else (False, True)
+        for graph in modes:
+            engine = Engine(cfg, params, options=EngineOptions(
+                device="cuda", decode_graph=graph, **ENGINE, **opts))
+            engine, handles, host, chunks = serve(
+                cfg, reqs, engine=engine, reset=build.reset_launches)
+            check_serve_launches(cfg, engine, collections.Counter(
+                build.LAUNCHES), chunks, attn_kernel)
+            if graph:
+                check_replays(cfg, engine, attn_kernel)
+            row = dict(serve_sample(len(runs), engine, host), arch=cfg.name,
+                       pair=pair)
+            log(f"capture-vs-eager {tag} " + json.dumps(row))
+            runs.append(row)
+            del engine, handles
+            gc.collect()
+    summary = dict(arch=cfg.name, tag=tag, pairs=pairs)
+    for graph in (True, False):
+        mine = [r for r in runs if r["decode_graph"] == graph]
+        engine = Engine(cfg, params, options=EngineOptions(
+            device="cuda", decode_graph=graph, **ENGINE, **opts))
+        engine.warmup()
+        prof = profile_decode(torch, engine)
+        log(f"capture-vs-eager-profile {tag} " + json.dumps(prof))
+        summary["captured" if graph else "eager"] = dict(
+            p50_decode_step_ms=[r["p50_decode_step_ms"] for r in mine],
+            median_p50_decode_step_ms=statistics.median(
+                r["p50_decode_step_ms"] for r in mine),
+            decode_tok_per_s=[r["decode_tok_per_s"] for r in mine],
+            wall_s=[r["wall_s"] for r in mine],
+            profile_wall_ms_per_step=prof["wall_ms_per_step"],
+            profile_device_ms_per_step=prof["device_ms_per_step"],
+            device_busy_share=prof["device_busy_share"],
+            kernels_per_step=prof["kernels_per_step"],
+            host_launches_per_step=prof["host_launches_per_step"])
+        del engine
+        gc.collect()
+    log("capture-vs-eager-summary " + json.dumps(summary))
+    torch.cuda.empty_cache()
+    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -911,7 +1106,9 @@ def check_serve_launches(cfg, engine, launches, chunks, attn_kernel):
 def deepseek_phase(torch, build, launcher) -> collections.Counter:
     """Full-width, full-depth DeepSeek-V2-Lite in bf16: the launcher, then
     an ``Engine`` (8 slots, 16-token pages, 64-token chunks) serving 8
-    seeded requests (prompts 16-256, 16-32 new tokens). Returns the
+    seeded requests (prompts 16-256, 16-32 new tokens), its decode
+    profile, capture vs eager in turns and the same requests under
+    ``preempt="auto"`` with a 48-page pool. Returns the first ``Engine``
     run's kernel launches."""
     import gc
     from repro_torch.models.module import leaves
@@ -958,36 +1155,175 @@ def deepseek_phase(torch, build, launcher) -> collections.Counter:
         chunks=chunks, launches=dict(launches),
         max_memory_allocated=torch.cuda.max_memory_allocated(), **host)
     log("serve-deepseek " + json.dumps(row))
+    check_replays(cfg, engine, "paged_mla_decode")
     log("decode-profile-deepseek " + json.dumps(profile_decode(torch,
                                                                engine)))
+    params = engine.params
     del engine, handles
+    gc.collect()
+    torch.cuda.empty_cache()
+    capture_vs_eager(torch, build, cfg, reqs, 2, params, "paged_mla_decode",
+                     "deepseek", adaptive=False)
+    # "auto" preemption with a pool tight enough to preempt: 48 pages for
+    # 8 requests whose prompts need 77 and whose budgets need 90
+    engine = Engine(cfg, params, options=EngineOptions(
+        device="cuda", preempt="auto", num_pages=48, adaptive=False,
+        **ENGINE))
+    swaps = timed_swaps(torch, engine.kv)
+    engine, handles, host, chunks = serve(cfg, reqs, engine=engine,
+                                          reset=build.reset_launches)
+    check_auto(cfg, engine, chunks, "paged_mla_decode", "deepseek", swaps,
+               host)
+    del engine, handles, params
     gc.collect()
     torch.cuda.empty_cache()
     return launches
 
 
 def gather_vs_kernel(torch, arch: str) -> None:
-    """Equal greedy tokens through the decode kernel and the gather path:
-    full width, 2 layers, fp32, 8 requests."""
+    """Equal greedy tokens through the decode kernel, captured and eager,
+    and through the gather path (captured): full width, 2 layers, fp32,
+    8 requests."""
     cfg = serve_config(num_layers=2, dtype="float32", arch=arch)
     small = requests(cfg.vocab_size, 8, seed=2, prompt=(16, 200),
                      gen=(16, 32))
     outs = {}
-    for kern in ("kernel", "gather"):
+    for kern, graph in (("kernel", True), ("kernel", False),
+                        ("gather", True)):
         eng, hs, _, _ = serve(cfg, small, attn_kernel=kern,
-                              preempt="recompute", adaptive=False)
-        outs[kern] = [list(r.output) for r in hs]
+                              decode_graph=graph, preempt="recompute",
+                              adaptive=False)
+        if eng.stats()["decode_captures"] != int(graph):
+            raise AssertionError(f"{arch} {kern}: "
+                                 f"{eng.stats()['decode_captures']} "
+                                 f"captures with decode_graph={graph}")
+        outs[(kern, graph)] = [list(r.output) for r in hs]
         del eng, hs
-    if outs["kernel"] != outs["gather"]:
-        first = next((i, j) for i, (a, b) in enumerate(
-            zip(outs["kernel"], outs["gather"]))
-            for j in range(max(len(a), len(b))) if a[j:j + 1] != b[j:j + 1])
-        raise AssertionError(f"{arch}: fp32 2-layer greedy tokens differ "
-                             f"between the kernel and gather decode paths "
-                             f"(request, token) {first}")
+    ref = outs[("kernel", True)]
+    for key, got in outs.items():
+        if got != ref:
+            first = next((i, j) for i, (a, b) in enumerate(zip(got, ref))
+                         for j in range(max(len(a), len(b)))
+                         if a[j:j + 1] != b[j:j + 1])
+            raise AssertionError(
+                f"{arch}: fp32 2-layer greedy tokens of {key} differ from "
+                f"the captured kernel path's at (request, token) {first}")
     log(f"kernel-vs-gather {arch} fp32 2 layers: "
-        f"{sum(map(len, outs['kernel']))} greedy tokens equal")
+        f"{sum(map(len, ref))} greedy tokens equal (kernel captured, "
+        f"kernel eager, gather captured)")
     torch.cuda.empty_cache()
+
+
+def timed_swaps(torch, kv) -> list:
+    """Wrap the cache's ``offload_slot`` and ``restore_slot`` in host
+    clocks between two ``torch.cuda.synchronize`` calls; returns the list
+    they fill with (kind, bytes, seconds)."""
+    out = []
+    for name in ("offload_slot", "restore_slot"):
+        def timed(*args, _fn=getattr(kv, name), _name=name, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nbytes = _fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            out.append((_name, nbytes, time.perf_counter() - t0))
+            return nbytes
+        setattr(kv, name, timed)
+    return out
+
+
+def swap_row(engine, swaps) -> dict:
+    """The run's preemptions by mode, each victim's costs and choice
+    (``Engine.preempt_log``), and the swap bytes and GB/s each way."""
+    s = engine.stats()
+    row = dict(preempt_recompute=s["preempt_recompute"],
+               preempt_offload=s["preempt_offload"], resumes=s["resumes"],
+               swap_out_bytes=s["swap_out_bytes"],
+               swap_in_bytes=s["swap_in_bytes"], victims=engine.preempt_log)
+    for kind, key in (("offload_slot", "out"), ("restore_slot", "in")):
+        mine = [(n, t) for k, n, t in swaps if k == kind]
+        if mine:
+            row[f"swap_{key}_gb_per_s"] = (sum(n for n, _ in mine) / 1e9
+                                           / sum(t for _, t in mine))
+            row[f"swap_{key}_ms_each"] = [t * 1e3 for _, t in mine]
+    return row
+
+
+def check_auto(cfg, engine, chunks, attn_kernel, tag, swaps,
+               host=None) -> None:
+    """A ``preempt="auto"`` run on the card: launches and replays as the
+    other runs, offload allowed, at least one victim, and every victim
+    preempted by its ``PreemptionCost`` choice. Logs an ``auto-preempt``
+    line with each victim's costs and the swaps (``swap_row``)."""
+    from repro_torch.kernels import build
+    check_serve_launches(cfg, engine, collections.Counter(build.LAUNCHES),
+                         chunks, attn_kernel)
+    check_replays(cfg, engine, attn_kernel)
+    row = dict(arch=cfg.name, dtype=cfg.compute_dtype, preempt="auto",
+               offload_allowed=engine.offload_allowed,
+               **({} if host is None else host))
+    row.update(swap_row(engine, swaps))
+    if not engine.offload_allowed or not row["victims"] or any(
+            v.get("choice") != v["mode"] for v in row["victims"]):
+        raise AssertionError(f"auto preemption: offload not allowed, no "
+                             f"victim, or a mode other than its cost's "
+                             f"choice: {row}")
+    log(f"auto-preempt {tag} " + json.dumps(row))
+
+
+def offload_phase(torch, build, params) -> collections.Counter:
+    """moe-gpt3-s under ``preempt="offload"`` with phase 4's 16 requests
+    and 65-page pool: at full width and depth in bf16 (over ``params``)
+    every request completes with at least one offload, the kernels launch
+    as ``check_serve_launches`` asks; the same run under ``"auto"``
+    (``check_auto``); then at 2 layers in fp32, the greedy tokens of the
+    offload run equal those of the recompute run of the same requests.
+    Returns the full-depth offload run's launches."""
+    from repro_torch.serve import Engine, EngineOptions
+    cfg = serve_config()
+    reqs = requests(cfg.vocab_size, 16, seed=0)
+    engine = Engine(cfg, params, options=EngineOptions(
+        device="cuda", preempt="offload", num_pages=65, adaptive=False,
+        **ENGINE))
+    swaps = timed_swaps(torch, engine.kv)
+    engine, handles, host, chunks = serve(cfg, reqs, engine=engine,
+                                          reset=build.reset_launches)
+    launches = collections.Counter(build.LAUNCHES)
+    check_serve_launches(cfg, engine, launches, chunks,
+                         "paged_decode_attention")
+    check_replays(cfg, engine, "paged_decode_attention")
+    row = dict(serve_sample(0, engine, host), arch=cfg.name,
+               dtype=cfg.compute_dtype, preempt="offload")
+    row.update(swap_row(engine, swaps))
+    if row["preempt_offload"] < 1:
+        raise AssertionError(f"the 65-page pool made no offload: {row}")
+    log("offload-serve " + json.dumps(row))
+    del engine, handles
+    engine = Engine(cfg, params, options=EngineOptions(
+        device="cuda", preempt="auto", num_pages=65, adaptive=False,
+        **ENGINE))
+    engine, handles, host, chunks = serve(cfg, reqs, engine=engine,
+                                          reset=build.reset_launches)
+    check_auto(cfg, engine, chunks, "paged_decode_attention", "moe-gpt3-s",
+               swaps=[])
+    del engine, handles
+    small = serve_config(num_layers=2, dtype="float32")
+    outs = {}
+    for mode in ("offload", "recompute"):
+        eng, hs, _, _ = serve(small, reqs, preempt=mode, num_pages=65,
+                              adaptive=False)
+        outs[mode] = ([list(r.output) for r in hs],
+                      eng.stats()[f"preempt_{mode}"])
+        del eng, hs
+    if outs["offload"][0] != outs["recompute"][0] or outs["offload"][1] < 1:
+        raise AssertionError(f"fp32 2-layer offload run: "
+                             f"{outs['offload'][1]} offloads, tokens equal "
+                             f"to recompute's: "
+                             f"{outs['offload'][0] == outs['recompute'][0]}")
+    log(f"offload-vs-recompute moe-gpt3-s fp32 2 layers: "
+        f"{sum(map(len, outs['offload'][0]))} greedy tokens equal, "
+        f"{outs['offload'][1]} offloads, {outs['recompute'][1]} recomputes")
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1462,7 +1798,8 @@ def pools_snapshot(torch, engine) -> tuple:
 def adaptive_serve_phase(torch, build) -> collections.Counter:
     """``Engine`` on full-width moe-gpt3-s in bf16 with its defaults
     (adaptive, measure auto), 8 seeded requests: it must measure prefill
-    candidates by wall clock on the card; the decode kernel launches
+    candidates by wall clock on the card (in its warmup, whose
+    launches are not counted); the decode kernel launches
     once per layer of each decode step, router and expert FFN once per
     MoE layer of each chunk at each bucket's resolved n (measurements
     apart); every request completes. Mid-run, a probe of
@@ -1506,15 +1843,19 @@ def adaptive_serve_phase(torch, build) -> collections.Counter:
                                  "sink page")
         probe.update(step=i, pages_checked=engine.kv.num_pages - 1)
 
+    def reset():           # warmup measured every bucket already
+        build.reset_launches()
+        measured.clear()
+
     reqs = requests(cfg.vocab_size, 8, seed=7)
     engine, handles, host, chunks = serve(cfg, reqs, engine=engine,
-                                          reset=build.reset_launches,
-                                          on_step=on_step)
+                                          reset=reset, on_step=on_step)
     total = collections.Counter(build.LAUNCHES)
     if not probe:
         raise AssertionError("the probe never ran")
     check_serve_launches(engine.cfg, engine, total - measured, chunks,
                          "paged_decode_attention")
+    check_replays(engine.cfg, engine, "paged_decode_attention")
     s = engine.stats()
     row = dict(arch=cfg.name, dtype=cfg.compute_dtype,
                requests=s["requests_done"], resolutions=s["resolutions"],
@@ -1538,6 +1879,7 @@ def adaptive_serve_phase(torch, build) -> collections.Counter:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1559,11 +1901,13 @@ def main() -> int:
         f"cores, torch CPU threads {torch.get_num_threads()}")
 
     # -- 2. build -----------------------------------------------------------
+    log(f"phase 2 at {time.perf_counter() - t_start:.1f} s")
     t0 = time.perf_counter()
     secs = build.build()
     log(f"build: {json.dumps(secs)} ({time.perf_counter() - t0:.2f} s)")
 
     # -- 3. kernel vs plain -------------------------------------------------
+    log(f"phase 3 at {time.perf_counter() - t_start:.1f} s")
     kernel_rows = [dict(check_paged_decode(torch, c),
                         kernel="paged_decode_attention", library_ms=None)
                    for c in kernel_cases(torch)]
@@ -1574,6 +1918,7 @@ def main() -> int:
     kernel_rows += route_plan_cases(torch)
 
     # -- 4. serve -----------------------------------------------------------
+    log(f"phase 4 at {time.perf_counter() - t_start:.1f} s")
     cfg = serve_config()
     stats = launcher.main(["--engine", "--arch", "moe-gpt3-s",
                            "--requests", "4", "--prompt-len", "16:128",
@@ -1604,36 +1949,50 @@ def main() -> int:
         preempt_recompute=s["preempt_recompute"], kernel_launches=launches,
         launches=dict(serve_launches),
         max_memory_allocated=torch.cuda.max_memory_allocated())
+    check_replays(cfg, engine, "paged_decode_attention")
     log("serve " + json.dumps(serve_row))
     log("serve-sample " + json.dumps(serve_sample(1, engine, host)))
     log("decode-profile " + json.dumps(profile_decode(torch, engine)))
+    params = engine.params
     del engine, handles
     torch.cuda.empty_cache()
+    capture_vs_eager(torch, build, cfg, reqs, 4, params,
+                     "paged_decode_attention", "moe-gpt3-s",
+                     preempt="recompute", num_pages=65, adaptive=False)
+    offload_launches = offload_phase(torch, build, params)
+    del params
 
     # -- 5. kernel vs gather ------------------------------------------------
+    log(f"phase 5 at {time.perf_counter() - t_start:.1f} s")
     gather_vs_kernel(torch, "moe-gpt3-s")
 
     # -- 6. serve DeepSeek-V2-Lite ------------------------------------------
+    log(f"phase 6 at {time.perf_counter() - t_start:.1f} s")
     deepseek_launches = deepseek_phase(torch, build, launcher)
 
     # -- 7. kernel vs gather, DeepSeek-V2-Lite -------------------------------
+    log(f"phase 7 at {time.perf_counter() - t_start:.1f} s")
     gather_vs_kernel(torch, DEEPSEEK)
 
     # -- 8. train -----------------------------------------------------------
+    log(f"phase 8 at {time.perf_counter() - t_start:.1f} s")
     train_rows, train_launches = train_phase(torch, build)
 
     # -- 9. adaptive (n, strategy) -----------------------------------------
+    log(f"phase 9 at {time.perf_counter() - t_start:.1f} s")
     adaptive_launches = adaptive_train_phase(torch, build)
     strategy_memory(torch)
     eta_sigma(torch)
     adaptive_launches += adaptive_serve_phase(torch, build)
 
     # -- 10. card vs CPU ----------------------------------------------------
+    log(f"phase 10 at {time.perf_counter() - t_start:.1f} s")
     card_vs_cpu(torch)
 
     # -- 11. kernels line ---------------------------------------------------
-    main_launches = (serve_launches + deepseek_launches + train_launches
-                     + adaptive_launches)
+    log(f"phase 11 at {time.perf_counter() - t_start:.1f} s")
+    main_launches = (serve_launches + offload_launches + deepseek_launches
+                     + train_launches + adaptive_launches)
     def head(kernel, case="train", dtype="bfloat16"):
         return next(r for r in kernel_rows if r["kernel"] == kernel
                     and r["case"] == case and r["dtype"] == dtype

@@ -10,11 +10,15 @@ build. ``build()`` starts one ``nvcc`` per source, all at once.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made — one
 per launch, nowhere else — so a run can show that its main path went
-through the kernels.
+through the kernels. Under CUDA graph capture a wrapper call records
+its launch instead of making it: ``recording()`` takes such calls back
+out of the count and hands them to the caller, which adds them once per
+replay (``replayed``), when the recorded launches run.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -22,7 +26,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Iterator, Optional
 
 KERNELS_DIR = Path(__file__).resolve().parent
 REPO_ROOT = KERNELS_DIR.parents[2]
@@ -49,6 +53,26 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[collections.Counter]:
+    """Around a CUDA graph capture: the wrapper calls made inside are
+    recorded launches, not launches. They leave ``LAUNCHES`` as it was
+    and fill the yielded counter, for ``replayed`` to add per replay."""
+    before = collections.Counter(LAUNCHES)
+    recorded: collections.Counter = collections.Counter()
+    try:
+        yield recorded
+    finally:
+        recorded.update(collections.Counter(LAUNCHES) - before)
+        LAUNCHES.clear()
+        LAUNCHES.update(before)
+
+
+def replayed(recorded: collections.Counter) -> None:
+    """One replay of a captured graph launched ``recorded``."""
+    LAUNCHES.update(recorded)
 
 
 def nvcc() -> str:

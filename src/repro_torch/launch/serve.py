@@ -4,11 +4,17 @@ seeded synthetic prompts.
     PYTHONPATH=src python -m repro_torch.launch.serve --engine \\
         --arch moe-gpt3-s --requests 16
 
-Submits ``--requests`` prompts of ``--prompt-len`` (a fixed length or a
+Builds the engine and calls its ``warmup()`` (the decode step captured
+on the card, every reachable prefill bucket resolved and built), as the
+JAX launcher does, printing the programs it built; then submits
+``--requests`` prompts of ``--prompt-len`` (a fixed length or a
 ``lo:hi`` range) seeded tokens, each asking ``--gen`` (or ``lo:hi``) new
-tokens, runs the engine (its default options) until idle, prints each
-prefill bucket's resolved ``(n, strategy)`` as the JAX launcher does and
-then ``stats()`` as one JSON line. Prefill ``(n, strategy)`` is resolved
+tokens, runs the engine until idle, prints the preemptions (when there
+were any), each prefill bucket's resolved ``(n, strategy)`` as the JAX
+launcher does and then ``stats()`` as one JSON line. ``--preempt``
+(default ``auto``) and ``--num-pages`` (default 0: the worst case) set
+the overload policy and the KV pool, as in the JAX launcher; the other
+engine options are ``EngineOptions``' defaults. Prefill ``(n, strategy)`` is resolved
 per bucket (``--hw``, ``--measure``; the JAX launcher's flags) unless
 ``--num-partitions N`` fixes n. It runs on the card; ``--device cpu``
 runs it on the CPU. ``--engine`` is accepted so the JAX launcher's
@@ -77,6 +83,15 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["auto", "wallclock", "simulate"],
                     help="bucket (n, strategy) resolution measure "
                          "(auto = wallclock on CUDA)")
+    ap.add_argument("--preempt", default="auto",
+                    choices=["auto", "recompute", "offload", "never"],
+                    help="overload policy: on-demand pages with "
+                         "preemption (auto picks offload or recompute per "
+                         "victim by cost), or 'never' for full-budget "
+                         "admission")
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="KV pool size in pages (0 = worst case; smaller "
+                         "values exercise preemption)")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", default="16:64",
                     help="prompt length, N or LO:HI")
@@ -98,18 +113,25 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     print(f"hw spec: {hw.name}", flush=True)
     engine = Engine(cfg, options=EngineOptions(
         device=args.device, hw=hw, measure=args.measure,
+        preempt=args.preempt, num_pages=args.num_pages,
         adaptive=args.num_partitions is None), seed=args.seed)
+    print(f"warmup: {engine.warmup()} programs built", flush=True)
     for prompt, gen in synthetic_requests(
             args.requests, cfg.vocab_size, _range(args.prompt_len),
             _range(args.gen), args.seed):
         engine.submit(prompt, max_new_tokens=gen)
     engine.run_until_idle()
+    s = engine.stats()
+    if s["preempt_recompute"] or s["preempt_offload"]:
+        print(f"preemptions: {s['preempt_recompute']} recompute, "
+              f"{s['preempt_offload']} offload, {s['resumes']} resumes, "
+              f"swap {s['swap_out_bytes'] / 2**20:.2f}MiB out / "
+              f"{s['swap_in_bytes'] / 2**20:.2f}MiB in")
     for bucket, (n, strat) in sorted(engine.adaptive.resolutions.items()):
         print(f"  bucket {bucket:4d} -> n={n} strategy={strat}")
-    stats = engine.stats()
-    stats["arch"] = cfg.name
-    print(json.dumps(stats, sort_keys=True))
-    return stats
+    s["arch"] = cfg.name
+    print(json.dumps(s, sort_keys=True))
+    return s
 
 
 if __name__ == "__main__":

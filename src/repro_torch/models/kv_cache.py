@@ -13,15 +13,19 @@ allocator does not know which kind of pool it serves.
 Unlike JAX, which returns new pools from every scatter, the port updates
 the pools **in place** (``scatter_pages`` writes into the tensor it is
 given and returns it): the pools are the engine's largest allocation
-and a copy per step would double it.
+and a copy per step would double it. The swap-in of preempt-by-offload
+(``insert_pages``) writes in place too: a captured decode graph reads
+the pools at the addresses they had at capture.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+import math
+from typing import Dict, List, Sequence
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.module import leaves
 
 
 def paged_layer_pool(cfg: ArchConfig, role: Dict, num_pages: int,
@@ -61,10 +65,76 @@ def init_paged_pools(cfg: ArchConfig, num_pages: int, page_size: int,
             for _ in range(cfg.num_periods)]
 
 
-def pools_bytes(pools) -> int:
-    return sum(t.numel() * t.element_size()
-               for period in pools for layer in period.values()
-               for t in layer.values())
+def tree_bytes(tree) -> int:
+    """Total bytes of a (host or device) tensor tree."""
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def _page_index(page_ids: Sequence[int], device) -> torch.Tensor:
+    return torch.as_tensor(list(page_ids), dtype=torch.long).to(device)
+
+
+def _in_order(pools) -> List[torch.Tensor]:
+    """The pools' leaves in the order ``_map`` visits them."""
+    return [t for period in pools for layer in period.values()
+            for t in layer.values()]
+
+
+def _map(fn, pools, *trees):
+    """``fn`` over the pools' leaves, zipped with same-shaped ``trees``:
+    the pools' per-period ``{layer: {name: tensor}}`` structure."""
+    return [{lk: {name: fn(t, *(tr[p][lk][name] for tr in trees))
+                  for name, t in layer.items()}
+             for lk, layer in period.items()}
+            for p, period in enumerate(pools)]
+
+
+def extract_pages(pools, page_ids: Sequence[int]):
+    """Copy physical pages out of the pools to the host (swap-out).
+
+    Returns a tree shaped like the pools with ``[len(page_ids), ps,
+    ...]`` host tensors (the JAX package stacks the periods on a leading
+    axis instead), all views of one host buffer: the pages are gathered
+    into one device buffer, which goes to the host in one copy. From
+    CUDA pools that copy goes to pinned memory, asynchronously on the
+    current stream: a kernel queued later on that stream (one reusing a
+    freed page) runs after the read, and the swap-in reads the host copy
+    in the same stream order, so neither needs a host sync. From CPU
+    pools the buffer is the host copy."""
+    if not page_ids:
+        raise ValueError("extract_pages of no pages")
+    ts = _in_order(pools)
+    if any(t.dtype != ts[0].dtype for t in ts):
+        raise ValueError("extract_pages needs pools of one dtype")
+    idx = _page_index(page_ids, ts[0].device)
+    shapes = [(idx.numel(),) + tuple(t.shape[1:]) for t in ts]
+    sizes = [math.prod(shape) for shape in shapes]
+    buf = torch.empty(sum(sizes), dtype=ts[0].dtype, device=ts[0].device)
+    for t, part, shape in zip(ts, buf.split(sizes), shapes):
+        torch.index_select(t, 0, idx, out=part.view(shape))
+    host = buf
+    if buf.device.type == "cuda":
+        host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+        host.copy_(buf, non_blocking=True)
+    views = iter([part.view(shape)
+                  for part, shape in zip(host.split(sizes), shapes)])
+    return _map(lambda t: next(views), pools)
+
+
+def insert_pages(pools, page_ids: Sequence[int], host):
+    """Write host page copies back into the pools, **in place** (swap-in):
+    the inverse of :func:`extract_pages`, page ``host[..][i]`` into
+    physical page ``page_ids[i]``. Returns ``pools``, the same tensors."""
+    first = leaves(pools)[0]
+    idx = _page_index(page_ids, first.device)
+
+    def one(t, h):
+        if h.shape[0] != idx.numel() or h.shape[1:] != t.shape[1:]:
+            raise ValueError(f"host pages {tuple(h.shape)} do not fit "
+                             f"{idx.numel()} pages of {tuple(t.shape)}")
+        t.index_copy_(0, idx, h.to(t.device, t.dtype, non_blocking=True))
+    _map(one, pools, host)
+    return pools
 
 
 def gather_pages(pool: torch.Tensor, page_table: torch.Tensor

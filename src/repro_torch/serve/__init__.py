@@ -1,14 +1,19 @@
 """``repro_torch.serve`` — continuous-batching serving over paged KV.
 
 ``engine.py``      :class:`Engine` / :class:`EngineOptions`: params,
-                   page pools, scheduler; ``submit`` / ``step`` /
-                   ``run_until_idle`` / ``stats``; recompute preemption
+                   page pools, scheduler; ``submit`` / ``warmup`` /
+                   ``step`` / ``run_until_idle`` / ``stats``; recompute,
+                   offload and auto preemption
+``decode_step.py`` :class:`DecodeStep`: the decode step over static
+                   input buffers, captured once as a CUDA graph on the
+                   card and replayed every step
 ``scheduler.py``   :class:`Scheduler`: FCFS admission in both
-                   reservation modes, chunked-prefill / decode interleave
+                   reservation modes, preemption and resume,
+                   chunked-prefill / decode interleave
 ``state_cache.py`` :class:`StateCache`: the protocol the engine and
-                   scheduler program against
+                   scheduler program against; :class:`StaticInput`
 ``paged_kv.py``    :class:`PagedKVCache`: host page allocator over the
-                   device pools, sink page, byte counters
+                   device pools, sink page, host offload, byte counters
 ``request.py``     :class:`Request` / :class:`RequestState`
 ``sampling.py``    greedy / temperature / top-k / top-p with seeded
                    per-request streams; host-side stop matching

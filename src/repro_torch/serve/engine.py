@@ -1,4 +1,4 @@
-"""Continuous-batching serving engine with recompute preemption — the
+"""Continuous-batching serving engine with preemptive scheduling — the
 single-device part of ``repro.serve.engine``.
 
 One :class:`Engine` owns the model params (a compute-dtype copy made
@@ -10,10 +10,30 @@ batch. Inactive decode slots are fed token 0 with their KV writes
 masked into the sink page; they still route through the MoE, as in the
 JAX engine, so the greedy tokens match it.
 
+Decode step (``EngineOptions.decode_graph``, on by default): on the card
+the step is captured once into a CUDA graph over inputs at fixed device
+addresses and replayed every step (``serve.decode_step``), the port's
+counterpart of the JAX engine's decode step jitted once; a failed
+capture or replay raises. On the CPU, or with ``decode_graph=False``,
+the same step runs eagerly over the same buffers. ``warmup()`` builds
+the decode step and every reachable prefill bucket's step up front, as
+the JAX engine's does.
+
 Decode attention (``EngineOptions.attn_kernel``): ``"kernel"`` runs the
 hand-written CUDA paged-decode kernel, ``"gather"`` the gather baseline,
 and ``"auto"`` picks ``"kernel"`` on CUDA and ``"gather"`` on the CPU
 (where the JAX engine picks its Pallas kernel on a TPU).
+
+Overload (``EngineOptions.preempt``): with ``"auto"`` (the default, as
+in the JAX engine), ``"recompute"`` or ``"offload"``, admission reserves
+a request's prompt only and slots grow page by page; when the pool runs
+dry the engine preempts the lowest-priority, then youngest, running
+request. ``"auto"`` chooses per victim between recompute (drop the
+pages, re-prefill at resume) and offload (the pages over the host link
+and back) by ``core.memory_model.PreemptionCost``, where offload is
+allowed (``allow_offload``; by default when the hardware spec has host
+offload and a CUDA device gives pinned memory); ``"never"`` reserves
+each request's whole budget at admission.
 
 Prefill ``(n, strategy)`` per bucket (``EngineOptions.adaptive``, on
 by default as in the JAX engine): each bucket's config is resolved once
@@ -22,10 +42,9 @@ by ``serve.adaptive.PrefillBucketAdaptive`` — Eq. 10 for the strategy
 wall clock on the card (``_wallclock_measure``: the candidate chunk runs
 on the live pools with every KV write sent to the sink page) or with the
 pipeline simulator on the CPU (``measure="auto"``). ``adaptive=False``
-keeps the config's ``num_partitions``. PyTorch runs eagerly, so there is
-no compile cache: an LRU of ``cache_size`` prefill step functions keyed
-by (bucket, n, strategy) stands where the JAX engine keeps its compiled
-steps.
+keeps the config's ``num_partitions``. Prefill runs eagerly: an LRU of
+``cache_size`` prefill step functions keyed by (bucket, n, strategy)
+stands where the JAX engine keeps its compiled steps.
 
 Options of the JAX engine whose feature is not ported yet raise
 ``NotImplementedError`` naming the ROADMAP.md slice that brings it;
@@ -43,12 +62,15 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.memory_model import PreemptionCost
+from repro_torch.core.strategies import host_offload_supported
 from repro_torch.core.types import GPU_H100, HardwareSpec, Strategy
 from repro_torch.device import dtype_of, resolve_device
 from repro_torch.models import lm
 from repro_torch.models.layers.attention import ATTN_KERNELS as _KERNELS
 from repro_torch.models.module import leaves
 from repro_torch.serve.adaptive import PrefillBucketAdaptive, force_adaptive
+from repro_torch.serve.decode_step import DecodeStep
 from repro_torch.serve.paged_kv import PagedKVCache
 from repro_torch.serve.request import Request, RequestState
 from repro_torch.serve.sampling import SamplingParams, sample_tokens
@@ -56,7 +78,7 @@ from repro_torch.serve.scheduler import Scheduler
 
 __all__ = ["Engine", "EngineOptions", "quantile"]
 
-PREEMPT_POLICIES = ("recompute", "never")
+PREEMPT_POLICIES = ("auto", "recompute", "offload", "never")
 ATTN_KERNELS = ("auto",) + _KERNELS
 
 
@@ -85,8 +107,11 @@ class EngineOptions:
     measure: str = "auto"              # auto | wallclock | simulate
     measure_steps: int = 2             # wallclock reps per candidate
     measure_fn: Optional[Callable] = None
-    preempt: str = "recompute"         # recompute | never
+    preempt: str = "auto"              # auto | recompute | offload | never
+    allow_offload: Optional[bool] = None   # None = hw and pinned memory
+    preempt_mfu: float = 0.5           # assumed MFU of a re-prefill (cost)
     attn_kernel: str = "auto"          # auto | kernel | gather
+    decode_graph: bool = True          # CUDA: capture the decode step
     device: Optional[str] = None       # None = cuda (raises without CUDA)
     # not ported yet: each raises NotImplementedError when set
     prefix_cache: str = "off"
@@ -97,11 +122,6 @@ class EngineOptions:
         return -(-self.max_seq_len // self.page_size)
 
     def check(self) -> None:
-        if self.preempt in ("auto", "offload"):
-            raise NotImplementedError(
-                f"preempt={self.preempt!r}: offload and auto preemption "
-                f"come with ROADMAP.md's 'Offload and auto preemption' "
-                f"slice")
         if self.preempt not in PREEMPT_POLICIES:
             raise ValueError(f"preempt must be one of {PREEMPT_POLICIES}")
         if self.attn_kernel not in ATTN_KERNELS:
@@ -166,10 +186,22 @@ class Engine:
             shards=opts.ep_size)
         self._prefill_fns: Dict[Tuple, Callable] = {}
         self.prefill_builds = 0
-        self._sinks = self.kv.device_sinks()
+        self._decode = DecodeStep(self.params, self.kv, cfg,
+                                  attn_kernel=self.attn_kernel,
+                                  graph=opts.decode_graph)
+        # forward FLOPs a token of the active parameters, for the
+        # offload-vs-recompute preemption cost
+        self._flops_per_token = 2.0 * lm.count_params(cfg, active_only=True)
+        self.offload_allowed = opts.allow_offload
+        if self.offload_allowed is None:
+            self.offload_allowed = (opts.hw.has_host_offload
+                                    and host_offload_supported())
         self._next_rid = 0
         self.step_count = 0
-        self.preempts = 0
+        self.preempts: Dict[str, int] = {"recompute": 0, "offload": 0}
+        # one entry per preemption: the victim, the mode applied and,
+        # under "auto" with offload allowed, the two costs compared
+        self.preempt_log: List[Dict[str, Any]] = []
         self.prefill_tokens = 0
         self.decode_tokens = 0
         self.step_s: Dict[str, List[float]] = {"prefill": [], "decode": []}
@@ -179,10 +211,12 @@ class Engine:
     def submit(self, prompt, *, max_new_tokens: int = 32,
                eos_id: Optional[int] = None, stop=(),
                sampling: Optional[SamplingParams] = None,
+               priority: int = 0,
                arrival_s: Optional[float] = None) -> Request:
         req = Request(rid=self._next_rid, prompt=np.asarray(prompt),
                       max_new_tokens=max_new_tokens, eos_id=eos_id,
                       stop=stop, sampling=sampling or SamplingParams(),
+                      priority=priority,
                       arrival_s=(time.perf_counter() if arrival_s is None
                                  else arrival_s))
         self._next_rid += 1
@@ -197,6 +231,36 @@ class Engine:
     @property
     def has_work(self) -> bool:
         return self.scheduler.has_work
+
+    def warmup(self) -> int:
+        """Build the decode step and every reachable prefill bucket's
+        step up front, as the JAX engine's ``warmup``, so the first
+        requests meet no capture and no bucket resolution. The decode
+        step runs once with every slot inactive over sink page-table
+        rows (on the card: the run before the capture, then the capture);
+        for each bucket that a chunk of 1 to ``chunk`` tokens pads to,
+        the bucket's ``(n, strategy)`` is resolved and its prefill step
+        built and run once over a sink row with no valid token. Every KV
+        write lands in the sink page: pools (bar the sink page), lens and
+        the page table are left as they were. Returns the programs built,
+        1 + the prefill builds, as the JAX engine counts them."""
+        kv = self.kv
+        before = self.prefill_builds
+        self._decode(np.zeros((kv.max_slots, 1), np.int64),
+                     np.zeros((kv.max_slots,), bool), sink_only=True)
+        buckets, c = set(), 1
+        while c < self.scheduler.chunk:
+            buckets.add(self.adaptive.bucket_of(c))
+            c *= 2
+        buckets.add(self.adaptive.bucket_of(self.scheduler.chunk))
+        for b in sorted(buckets):
+            fn = self._prefill_fn(b, self.adaptive.cfg_for(b))
+            with torch.no_grad():
+                fn(kv.pools, kv.sink_page_table(),
+                   torch.zeros((1,), dtype=torch.int32, device=self.device),
+                   torch.zeros((1, b), dtype=torch.int64,
+                               device=self.device), 0, kv.sink_row(0))
+        return 1 + self.prefill_builds - before
 
     # -- prefill step functions ------------------------------------------
     def _prefill_fn(self, bucket: int, rcfg: ArchConfig) -> Callable:
@@ -257,14 +321,46 @@ class Engine:
 
     # -- preemption ------------------------------------------------------
     def _pick_victim(self) -> Optional[Request]:
-        """The youngest running request that holds pages (the JAX
-        engine's order when every request has the default priority)."""
+        """Lowest priority, then youngest, among the running requests
+        that hold cache bytes (all running requests when none does)."""
         running = list(self.scheduler.running.values())
         cands = [r for r in running if self.kv.held_bytes(r.slot) > 0]
         cands = cands or running
         if not cands:
             return None
-        return max(cands, key=lambda r: r.rid)
+        return min(cands, key=lambda r: (r.priority, -r.rid))
+
+    def _preempt_cost(self, req: Request) -> Optional[PreemptionCost]:
+        """What preempting ``req`` costs by recompute and by offload, under
+        ``"auto"`` where offload is allowed; None otherwise."""
+        if self.opts.preempt != "auto" or not self.offload_allowed:
+            return None
+        hw = self.opts.hw
+        return PreemptionCost(
+            tokens_cached=int(self.kv.lens[req.slot]),
+            bytes_held=self.kv.held_bytes(req.slot),
+            flops_per_token=self._flops_per_token, flops=hw.flops,
+            host_bw=hw.host_bw, mfu=self.opts.preempt_mfu,
+            eta=hw.interference.eta_comp)
+
+    def _preempt_mode(self, cost: Optional[PreemptionCost]) -> str:
+        """A fixed policy's mode, else the cost's choice; recompute where
+        offload is not allowed."""
+        if self.opts.preempt in ("recompute", "offload"):
+            return self.opts.preempt
+        return "recompute" if cost is None else cost.choice
+
+    def _do_preempt(self, victim: Request) -> None:
+        entry = dict(rid=victim.rid,
+                     tokens_cached=int(self.kv.lens[victim.slot]),
+                     bytes_held=self.kv.held_bytes(victim.slot))
+        cost = self._preempt_cost(victim)
+        if cost is not None:
+            entry.update(recompute_s=cost.recompute_s,
+                         offload_s=cost.offload_s, choice=cost.choice)
+        mode = self.scheduler.preempt(victim, self._preempt_mode(cost))
+        self.preempts[mode] += 1
+        self.preempt_log.append(dict(entry, mode=mode))
 
     def _ensure(self, slot: int, tokens: int) -> bool:
         """Grow ``slot`` until it can hold ``tokens``, preempting victims
@@ -278,8 +374,7 @@ class Engine:
                 raise RuntimeError("page pool wedged: no free pages and "
                                    "no victim")
             vslot = victim.slot
-            self.scheduler.preempt(victim)
-            self.preempts += 1
+            self._do_preempt(victim)
             if vslot == slot:
                 return False
         return True
@@ -314,7 +409,7 @@ class Engine:
         toks[0, :c] = req.prefill_tokens[req.prefill_pos:
                                          req.prefill_pos + c]
         with torch.no_grad():
-            logits, kv.pools = fn(
+            logits, _ = fn(                    # the pools, written in place
                 kv.pools, kv.device_page_table(slot), kv.device_lens(slot),
                 torch.from_numpy(toks).to(self.device), c,
                 kv.sink_row(slot))
@@ -355,12 +450,8 @@ class Engine:
             active[s] = True
             by_slot[s] = req.sampling
             positions[s] = len(req.output)
+        logits = self._decode(tokens, active)
         with torch.no_grad():
-            logits, kv.pools = lm.decode_step_paged(
-                self.params, kv.pools, kv.device_page_table(),
-                kv.device_lens(), torch.from_numpy(tokens).to(self.device),
-                self.cfg, active=torch.from_numpy(active).to(self.device),
-                write_sink=self._sinks, attn_kernel=self.attn_kernel)
             toks = sample_tokens(logits, by_slot, positions).tolist()
         now = time.perf_counter()
         for s in slots:
@@ -410,8 +501,13 @@ class Engine:
             "p99_ttft_s": quantile(ttft, 99),
             "p50_itl_s": quantile(itl, 50),
             "p99_itl_s": quantile(itl, 99),
-            "preempt_recompute": self.preempts,
+            "decode_captures": self._decode.captures,
+            "decode_replays": self._decode.replays,
+            "preempt_recompute": self.preempts["recompute"],
+            "preempt_offload": self.preempts["offload"],
             "resumes": self.scheduler.resume_count,
+            "swap_out_bytes": self.kv.swap_out_bytes,
+            "swap_in_bytes": self.kv.swap_in_bytes,
             "cache_bytes": self.kv.cache_bytes,
             "peak_kv_used_bytes": self.kv.peak_used_bytes,
             "measure": self.measure,

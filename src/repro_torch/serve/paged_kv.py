@@ -5,7 +5,10 @@ Device side (``models/kv_cache.init_paged_pools``): per attention layer
 a global pool ``[num_pages, page_size, kv_heads, head_dim]`` for K and
 for V. Host side (this module): a numpy free list of physical pages, a
 ``[max_slots, max_pages_per_seq]`` page table and per-slot lengths,
-copied to the device each step as int32 tensors.
+copied to the device each step as int32 tensors (the decode step's into
+persistent buffers, ``decode_inputs``). Preempt-by-offload parks a
+slot's written pages in host memory, keyed by request id, and restores
+them into fresh pages (``offload_slot`` / ``restore_slot``).
 
 Invariants:
 * page 0 is reserved — never allocated — as the write sink for masked
@@ -19,14 +22,14 @@ Invariants:
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import kv_cache
-from repro_torch.serve.state_cache import StateCache
+from repro_torch.serve.state_cache import StateCache, StaticInput
 
 __all__ = ["PagedKVCache"]
 
@@ -51,7 +54,7 @@ class PagedKVCache(StateCache):
         self.pools = kv_cache.init_paged_pools(cfg, self.num_pages,
                                                self.page_size, dtype,
                                                self.device)
-        self._cache_bytes = kv_cache.pools_bytes(self.pools)
+        self._cache_bytes = kv_cache.tree_bytes(self.pools)
         # popping from the end hands out the lowest page first
         self._free: List[int] = list(range(self.num_pages - 1, 0, -1))
         self.page_table = np.full((self.max_slots, self.max_pages_per_seq),
@@ -59,6 +62,17 @@ class PagedKVCache(StateCache):
         self._slot_pages: List[List[int]] = [[] for _ in
                                              range(self.max_slots)]
         self.peak_used_pages = 0
+        # rid -> (host pages, page count)
+        self._offloaded: Dict[int, Tuple[list, int]] = {}
+        self.swap_out_bytes = 0
+        self.swap_in_bytes = 0
+        # the decode step's inputs, at fixed device addresses
+        self._decode_table = StaticInput(self.page_table.shape, torch.int32,
+                                         self.device)
+        self._decode_lens = StaticInput(self.lens.shape, torch.int32,
+                                        self.device)
+        self._sinks = torch.full((self.max_slots,), SINK_PAGE,
+                                 dtype=torch.int32, device=self.device)
 
     # -- budget ----------------------------------------------------------
     def pages_for(self, tokens: int) -> int:
@@ -94,16 +108,19 @@ class PagedKVCache(StateCache):
     def _note_peak(self) -> None:
         self.peak_used_pages = max(self.peak_used_pages, self.used_pages)
 
+    def _bind(self, slot: int, pages: List[int], tokens: int) -> None:
+        self._slot_pages[slot] = pages
+        self.page_table[slot, :] = SINK_PAGE
+        self.page_table[slot, :len(pages)] = pages
+        self.lens[slot] = tokens
+        self._note_peak()
+
     def alloc_slot(self, slot: int, tokens: int) -> None:
         """Reserve ``pages_for(tokens)`` pages for ``slot``."""
         assert not self._slot_pages[slot], f"slot {slot} already allocated"
         assert self.can_admit(tokens), "alloc_slot without can_admit"
-        pages = [self._free.pop() for _ in range(self.pages_for(tokens))]
-        self._slot_pages[slot] = pages
-        self.page_table[slot, :] = SINK_PAGE
-        self.page_table[slot, :len(pages)] = pages
-        self.lens[slot] = 0
-        self._note_peak()
+        self._bind(slot, [self._free.pop()
+                          for _ in range(self.pages_for(tokens))], 0)
 
     def slot_page_count(self, slot: int) -> int:
         return len(self._slot_pages[slot])
@@ -133,14 +150,78 @@ class PagedKVCache(StateCache):
         self.page_table[slot, :] = SINK_PAGE
         self.lens[slot] = 0
 
+    # -- preempt-by-offload ----------------------------------------------
+    def offload_slot(self, slot: int, rid: int) -> int:
+        """Swap the slot's pages out to host memory (keyed by request id)
+        and free them. Only the pages covering ``lens[slot]`` are copied:
+        growth can run ahead of a chunk that was then preempted away, and
+        those tail pages hold nothing worth saving. Returns bytes
+        copied."""
+        pages = self._slot_pages[slot]
+        need = self.pages_for(int(self.lens[slot]))
+        assert pages and need >= 1, f"offload of empty slot {slot}"
+        assert rid not in self._offloaded, f"rid {rid} already offloaded"
+        assert need <= len(pages), \
+            f"slot {slot} holds {len(pages)} pages < lens needs {need}"
+        self._free.extend(reversed(pages[need:]))   # trim unwritten growth
+        pages = self._slot_pages[slot] = pages[:need]
+        host = kv_cache.extract_pages(self.pools, pages)
+        nbytes = kv_cache.tree_bytes(host)
+        self._offloaded[rid] = (host, len(pages))
+        self.swap_out_bytes += nbytes
+        self.free_slot(slot)
+        return nbytes
+
+    def offloaded_pages(self, rid: int) -> int:
+        return self._offloaded[rid][1]
+
+    def can_restore(self, rid: int) -> bool:
+        return self._offloaded[rid][1] <= self.free_pages
+
+    def drop_offload(self, rid: int) -> None:
+        """Discard a parked request's host pages; its device pages were
+        freed at offload time, so no page table changes."""
+        del self._offloaded[rid]
+
+    def restore_slot(self, rid: int, slot: int, tokens: int) -> int:
+        """Swap a preempted request's pages back in: take fresh pages
+        (the table re-maps), copy the host contents into the pools in
+        place, and rebind the slot at length ``tokens``. Returns bytes
+        copied."""
+        host, need = self._offloaded[rid]
+        # validate before popping: a refused restore keeps the pages
+        assert not self._slot_pages[slot], f"slot {slot} already allocated"
+        assert need <= self.free_pages, "restore_slot without can_restore"
+        assert self.pages_for(tokens) == need, \
+            f"restore of {tokens} tokens into {need} pages"
+        del self._offloaded[rid]
+        pages = [self._free.pop() for _ in range(need)]
+        kv_cache.insert_pages(self.pools, pages, host)
+        self._bind(slot, pages, tokens)
+        nbytes = kv_cache.tree_bytes(host)
+        self.swap_in_bytes += nbytes
+        return nbytes
+
+    @property
+    def offloaded_count(self) -> int:
+        return len(self._offloaded)
+
+    @property
+    def host_bytes(self) -> int:
+        """Bytes currently parked in host memory."""
+        return sum(kv_cache.tree_bytes(host)
+                   for host, _ in self._offloaded.values())
+
     # -- step inputs -----------------------------------------------------
-    def device_page_table(self, slot: Optional[int] = None) -> torch.Tensor:
-        if slot is None:
-            return self._upload(self.page_table)
+    def device_page_table(self, slot: int) -> torch.Tensor:
         return self._upload(self.page_table[slot:slot + 1])
 
-    def device_sinks(self) -> torch.Tensor:
-        return self._upload(np.full((self.max_slots,), SINK_PAGE, np.int32))
+    def decode_inputs(self, sink_only: bool = False):
+        table, lens = self.page_table, self.lens
+        if sink_only:
+            table, lens = np.full_like(table, SINK_PAGE), np.zeros_like(lens)
+        return (self._decode_table.refresh(table),
+                self._decode_lens.refresh(lens), self._sinks)
 
     def sink_row(self, slot: int) -> torch.Tensor:
         return self._upload(np.asarray([SINK_PAGE], np.int32))

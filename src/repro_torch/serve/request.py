@@ -3,7 +3,8 @@
 
 A request moves QUEUED -> PREFILL -> DECODE -> DONE, possibly bouncing
 through PREEMPTED (back to the scheduler's resume queue) when the paged
-KV pool runs dry. Stopping (``max_new_tokens``, ``eos_id``, ``stop`` sequences) is applied
+KV pool runs dry: by recompute (it re-prefills at resume) or by offload
+(its pages wait in host memory and it resumes where it stopped). Stopping (``max_new_tokens``, ``eos_id``, ``stop`` sequences) is applied
 host-side. Every emitted token is timestamped, so TTFT and inter-token
 latency are reported apart: a preemption stall shows as one long
 inter-token gap.
@@ -38,6 +39,7 @@ class Request:
     eos_id: Optional[int] = None
     stop: Sequence[Sequence[int]] = ()     # token-id stop sequences
     sampling: SamplingParams = SamplingParams()
+    priority: int = 0                      # higher = preempted later
     arrival_s: float = 0.0                 # submit timestamp (perf_counter)
 
     # -- runtime state (owned by the scheduler/engine) -------------------
@@ -50,7 +52,11 @@ class Request:
     finish_s: float = 0.0
     token_times: List[float] = dataclasses.field(default_factory=list)
 
-    preempt_count: int = 0                 # recompute preemptions so far
+    # -- preemption state ------------------------------------------------
+    preempt_mode: str = ""                 # "recompute" | "offload" | ""
+    resume_to: str = ""                    # "prefill" | "decode"
+    cached_tokens: int = 0                 # KV tokens parked in host memory
+    preempt_count: int = 0
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)

@@ -6,12 +6,14 @@ single-device part of ``repro.serve.scheduler``.
   can be reserved up front; ``full_reserve=False`` needs a free slot plus
   pages for the *prompt* only, decode grows page by page, and a dry pool
   makes the engine preempt a victim.
-* **Preemption** (:meth:`preempt`) is *recompute*: the victim drops its
-  pages and re-prefills its prompt plus generated tokens at resume.
-  Resumes go strictly before fresh admissions, oldest first, with
-  head-of-line blocking in both queues, so the oldest work always makes
-  progress. Offload preemption comes with ROADMAP.md's 'Offload and
-  auto preemption' slice.
+* **Preemption** (:meth:`preempt`): the victim leaves its slot as
+  PREEMPTED, either dropping its pages to re-prefill its prompt plus
+  generated tokens at resume (*recompute*) or parking them in host
+  memory (*offload*), and joins the resume queue. An offloaded request
+  resumes into PREFILL or DECODE, where it stopped, once its pages fit
+  again (``can_restore``). Resumes go strictly before fresh admissions,
+  oldest first, with head-of-line blocking in both queues, so the
+  oldest work always makes progress.
 * **Interleaving**: prefill is chunked and alternates with decode when
   both have work, bounding decode-token latency by one chunk.
 """
@@ -65,12 +67,12 @@ class Scheduler:
             slot = slots[0]
             if self.resuming:
                 req = min(self.resuming, key=lambda r: r.rid)
-                if not self.kv.can_admit(req.prefill_len):
+                if req.preempt_mode == "offload":
+                    if not self.kv.can_restore(req.rid):
+                        break
+                elif not self.kv.can_admit(req.prefill_len):
                     break
-                self.kv.alloc_slot(slot, req.prefill_len)
-                self.resuming.remove(req)
-                req.prefill_pos = 0
-                self.resume_count += 1
+                self._admit_resume(req, slot)
             elif self.waiting:
                 req = self.waiting[0]
                 need = (req.total_budget if self.full_reserve
@@ -80,30 +82,61 @@ class Scheduler:
                 self.kv.alloc_slot(slot, need)
                 self.waiting.popleft()
                 req.prefill_pos = 0
+                req.state = RequestState.PREFILL
             else:
                 break
-            req.state = RequestState.PREFILL
             req.slot = slot
             self.running[slot] = req
-            self._prefilling.append(slot)
+            if req.state == RequestState.PREFILL:
+                self._prefilling.append(slot)
             admitted.append(req)
         return admitted
 
+    def _admit_resume(self, req: Request, slot: int) -> None:
+        if req.preempt_mode == "offload":
+            self.kv.restore_slot(req.rid, slot, req.cached_tokens)
+            req.state = (RequestState.PREFILL if req.resume_to == "prefill"
+                         else RequestState.DECODE)
+        else:                                   # recompute: re-prefill
+            self.kv.alloc_slot(slot, req.prefill_len)
+            req.prefill_pos = 0
+            req.state = RequestState.PREFILL
+        self.resuming.remove(req)
+        req.preempt_mode = ""
+        req.cached_tokens = 0
+        self.resume_count += 1
+
     # -- preemption ------------------------------------------------------
-    def preempt(self, req: Request) -> None:
-        """Evict a running request by recompute: free its pages and move
-        it to the resume queue."""
+    def preempt(self, req: Request, mode: str = "recompute") -> str:
+        """Evict a running request: free (``"recompute"``) or offload
+        (``"offload"``) its pages and move it to the resume queue.
+        Returns the mode applied: an offload of a request with no cached
+        tokens is a recompute."""
+        if mode not in ("recompute", "offload"):
+            raise ValueError(f"preempt mode must be recompute or offload, "
+                             f"got {mode!r}")
         slot = req.slot
         assert self.running.get(slot) is req, f"request {req.rid} not running"
-        self.kv.free_slot(slot)
+        req.resume_to = ("prefill" if req.state == RequestState.PREFILL
+                         else "decode")
+        req.cached_tokens = int(self.kv.lens[slot])
+        if mode == "offload" and req.cached_tokens > 0:
+            self.kv.offload_slot(slot, req.rid)
+        else:
+            mode = "recompute"
+            self.kv.free_slot(slot)
+            req.prefill_pos = 0
+            req.cached_tokens = 0
+            req.resume_to = "prefill"
         if slot in self._prefilling:
             self._prefilling.remove(slot)
         del self.running[slot]
         req.slot = -1
-        req.prefill_pos = 0
         req.state = RequestState.PREEMPTED
+        req.preempt_mode = mode
         req.preempt_count += 1
         self.resuming.append(req)
+        return mode
 
     # -- step planning ---------------------------------------------------
     def decode_slots(self) -> List[int]:

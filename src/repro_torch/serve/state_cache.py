@@ -4,22 +4,54 @@ concrete cache — the single-device part of ``repro.serve.state_cache``.
 
 What the engine needs from "the cache": slot lifecycle (``alloc_slot``
 / ``grow_slot`` / ``free_slot`` and the host ``lens`` array), admission
-budgeting (``admissible``, ``can_admit``, ``held_bytes``), the step
-inputs (``pools``, ``device_page_table``, ``device_lens``,
-``device_sinks``, ``sink_row``) and byte accounting. The one
-implementation here is :class:`~repro_torch.serve.paged_kv.PagedKVCache`;
-the constant-state and composite caches come with ROADMAP.md's 'Other
-architectures' slice, host offload with 'Offload and auto preemption'.
+budgeting (``admissible``, ``can_admit``, ``held_bytes``), preemption
+by offload (``offload_slot`` / ``restore_slot`` / ``can_restore`` /
+``drop_offload``: the slot's state parked in host memory), the step
+inputs (``pools``; prefill's ``device_page_table``, ``device_lens``,
+``sink_row``; decode's ``decode_inputs``) and byte accounting. The one implementation here is
+:class:`~repro_torch.serve.paged_kv.PagedKVCache`; the constant-state
+and composite caches come with ROADMAP.md's 'Other architectures'
+slice.
+
+The decode step's inputs are :class:`StaticInput` buffers: device
+tensors whose addresses never change, refreshed in place every step, so
+a CUDA graph captured over them stays valid. Prefill makes fresh
+tensors, since it runs eagerly.
 """
 from __future__ import annotations
 
 import abc
-from typing import Optional
+from typing import Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["StateCache"]
+__all__ = ["StateCache", "StaticInput"]
+
+
+class StaticInput:
+    """A device tensor that keeps its address while each step refreshes
+    its contents from host data. On the card the data goes through a
+    pinned staging tensor and an asynchronous copy on the current stream;
+    before the staging tensor is written again, the host waits for the
+    previous copy to have read it. On the CPU the copy is synchronous."""
+
+    def __init__(self, shape, dtype: torch.dtype, device: torch.device):
+        self.tensor = torch.zeros(shape, dtype=dtype, device=device)
+        cuda = self.tensor.device.type == "cuda"
+        self._stage = torch.zeros(shape, dtype=dtype, pin_memory=cuda)
+        self._copied = torch.cuda.Event() if cuda else None
+
+    def refresh(self, host: np.ndarray) -> torch.Tensor:
+        if self._copied is not None:
+            self._copied.synchronize()
+        # the copy into the stage is the host's own: torch.from_numpy
+        # would alias arrays the engine mutates in place
+        self._stage.numpy()[...] = host
+        self.tensor.copy_(self._stage, non_blocking=True)
+        if self._copied is not None:
+            self._copied.record()
+        return self.tensor
 
 
 class StateCache(abc.ABC):
@@ -71,6 +103,36 @@ class StateCache(abc.ABC):
     def held_bytes(self, slot: int) -> int:
         """Device bytes a preemption of this slot would release."""
 
+    # -- preemption snapshot / restore ------------------------------------
+    @abc.abstractmethod
+    def offload_slot(self, slot: int, rid: int) -> int:
+        """Snapshot the slot's state to host memory (keyed by request
+        id), release the device side. Returns bytes copied."""
+
+    @abc.abstractmethod
+    def restore_slot(self, rid: int, slot: int, tokens: int) -> int:
+        """Restore a parked request onto ``slot`` at length ``tokens``.
+        Returns bytes copied."""
+
+    @abc.abstractmethod
+    def can_restore(self, rid: int) -> bool:
+        """Is there room to restore the parked request now?"""
+
+    @abc.abstractmethod
+    def drop_offload(self, rid: int) -> None:
+        """Discard a parked request's host snapshot (it will never
+        resume); its device state was released at ``offload_slot``."""
+
+    @property
+    @abc.abstractmethod
+    def offloaded_count(self) -> int:
+        """Requests currently parked in host memory."""
+
+    @property
+    @abc.abstractmethod
+    def host_bytes(self) -> int:
+        """Bytes currently parked in host memory."""
+
     # -- step inputs -------------------------------------------------------
     def _upload(self, host: np.ndarray) -> torch.Tensor:
         # always copy first: torch.from_numpy is zero-copy, and the engine
@@ -78,19 +140,21 @@ class StateCache(abc.ABC):
         # host-to-device copy may still be reading them
         return torch.from_numpy(host.copy()).to(self.device)
 
-    def device_lens(self, slot: Optional[int] = None) -> torch.Tensor:
-        """Device copy of ``lens`` (one slot's ``[1]`` row when given)."""
-        if slot is None:
-            return self._upload(self.lens)
+    def device_lens(self, slot: int) -> torch.Tensor:
+        """One slot's ``[1]`` row of ``lens``, a fresh device tensor."""
         return self._upload(self.lens[slot:slot + 1])
 
     @abc.abstractmethod
-    def device_page_table(self, slot: Optional[int] = None) -> torch.Tensor:
-        """``[max_slots, W]`` (decode) or ``[1, W]`` (one slot) int32."""
+    def device_page_table(self, slot: int) -> torch.Tensor:
+        """One slot's ``[1, W]`` int32 page-table row, a fresh tensor."""
 
     @abc.abstractmethod
-    def device_sinks(self) -> torch.Tensor:
-        """Per-slot masked-write sink ids ``[max_slots]`` for decode."""
+    def decode_inputs(self, sink_only: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The decode step's page table ``[max_slots, W]``, lens
+        ``[max_slots]`` (int32) and per-slot sinks ``[max_slots]``: the
+        same device tensors every call, refreshed in place from the host
+        state (``sink_only``: every row mapped to the sink, lens 0)."""
 
     @abc.abstractmethod
     def sink_row(self, slot: int) -> torch.Tensor:

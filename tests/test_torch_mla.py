@@ -265,7 +265,7 @@ def test_latent_pools_are_mla_sized_and_trailing_dim_generic():
     pools = kv_cache.paged_layer_pool(cfg, role, 3, 16, device="meta")
     assert pools["ckv_pool"].shape == (3, 16, 512)
     assert pools["kr_pool"].shape == (3, 16, 64)
-    assert kv_cache.pools_bytes([{"l0": pools}]) == 3 * 16 * 1152
+    assert kv_cache.tree_bytes([{"l0": pools}]) == 3 * 16 * 1152
     from repro_torch.serve.paged_kv import PagedKVCache
     _, tcfg = _cfgs()
     kv = PagedKVCache(tcfg, num_pages=5, page_size=4, max_slots=2,
