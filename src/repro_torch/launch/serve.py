@@ -13,10 +13,14 @@ tokens, runs the engine until idle, prints the preemptions (when there
 were any), each prefill bucket's resolved ``(n, strategy)`` as the JAX
 launcher does and then ``stats()`` as one JSON line. ``--preempt``
 (default ``auto``) and ``--num-pages`` (default 0: the worst case) set
-the overload policy and the KV pool, as in the JAX launcher; the other
-engine options are ``EngineOptions``' defaults. Prefill ``(n, strategy)`` is resolved
-per bucket (``--hw``, ``--measure``; the JAX launcher's flags) unless
-``--num-partitions N`` fixes n. It runs on the card; ``--device cpu``
+the overload policy and the KV pool, and ``--prefix-cache on`` the
+cross-request prefix cache (then a ``prefix cache:`` line: hits, misses,
+prompt tokens skipped, copy-on-write copies, evicted pages), as in the
+JAX launcher; a ``served`` line counts the requests done and cancelled
+by stage. The other engine options are ``EngineOptions``' defaults.
+Prefill ``(n, strategy)`` is resolved per bucket (``--hw``,
+``--measure``; the JAX launcher's flags) unless ``--num-partitions N``
+fixes n. It runs on the card; ``--device cpu``
 runs it on the CPU. ``--engine`` is accepted so the JAX launcher's
 command line runs unchanged; the engine is the only serving mode
 ported. The Poisson trace replay, the HTTP ingress and ``/metrics`` of
@@ -92,6 +96,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--num-pages", type=int, default=0,
                     help="KV pool size in pages (0 = worst case; smaller "
                          "values exercise preemption)")
+    ap.add_argument("--prefix-cache", default="off", choices=["on", "off"],
+                    help="cross-request prefix cache: 'on' publishes the "
+                         "full KV pages of finished prefixes in a "
+                         "refcounted trie, so later requests that share "
+                         "a prompt prefix skip its prefill (copy-on-write "
+                         "where they part, LRU eviction under pressure)")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", default="16:64",
                     help="prompt length, N or LO:HI")
@@ -114,6 +124,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     engine = Engine(cfg, options=EngineOptions(
         device=args.device, hw=hw, measure=args.measure,
         preempt=args.preempt, num_pages=args.num_pages,
+        prefix_cache=args.prefix_cache,
         adaptive=args.num_partitions is None), seed=args.seed)
     print(f"warmup: {engine.warmup()} programs built", flush=True)
     for prompt, gen in synthetic_requests(
@@ -122,11 +133,22 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         engine.submit(prompt, max_new_tokens=gen)
     engine.run_until_idle()
     s = engine.stats()
+    print(f"served {s['requests_done']} requests "
+          f"({s['requests_cancelled']} cancelled: "
+          f"{s['cancelled_by_stage']}), "
+          f"{s['tokens_generated']} tokens in {s['engine_steps']} steps")
     if s["preempt_recompute"] or s["preempt_offload"]:
         print(f"preemptions: {s['preempt_recompute']} recompute, "
               f"{s['preempt_offload']} offload, {s['resumes']} resumes, "
               f"swap {s['swap_out_bytes'] / 2**20:.2f}MiB out / "
               f"{s['swap_in_bytes'] / 2**20:.2f}MiB in")
+    if s["prefix_cache"] == "on":
+        print(f"prefix cache: {s['prefix_hits']} hits / "
+              f"{s['prefix_misses']} misses "
+              f"({100 * s['prefix_hit_rate']:.0f}%), "
+              f"{s['prefix_hit_tokens']} prompt tokens skipped, "
+              f"{s['prefix_cow_copies']} CoW copies, "
+              f"{s['prefix_evicted_pages']} pages evicted")
     for bucket, (n, strat) in sorted(engine.adaptive.resolutions.items()):
         print(f"  bucket {bucket:4d} -> n={n} strategy={strat}")
     s["arch"] = cfg.name

@@ -14,8 +14,9 @@ Unlike JAX, which returns new pools from every scatter, the port updates
 the pools **in place** (``scatter_pages`` writes into the tensor it is
 given and returns it): the pools are the engine's largest allocation
 and a copy per step would double it. The swap-in of preempt-by-offload
-(``insert_pages``) writes in place too: a captured decode graph reads
-the pools at the addresses they had at capture.
+(``insert_pages``) and the prefix cache's copy-on-write
+(``copy_pages``) write in place too: a captured decode graph reads the
+pools at the addresses they had at capture.
 """
 from __future__ import annotations
 
@@ -134,6 +135,28 @@ def insert_pages(pools, page_ids: Sequence[int], host):
                              f"{idx.numel()} pages of {tuple(t.shape)}")
         t.index_copy_(0, idx, h.to(t.device, t.dtype, non_blocking=True))
     _map(one, pools, host)
+    return pools
+
+
+def copy_pages(pools, src_pages: Sequence[int], dst_pages: Sequence[int]):
+    """Duplicate physical pages on the device, **in place**
+    (copy-on-write): every ``dst_pages[i]`` gets a copy of
+    ``src_pages[i]`` in every pool leaf, one ``index_copy_`` a leaf on
+    the current stream, so a decode step queued after it on that stream
+    (eager or a graph replay) reads the copy. The sources and the
+    destinations must be disjoint. Returns ``pools``, the same tensors:
+    a captured decode graph reads the pools at the addresses they had
+    at capture."""
+    if len(src_pages) != len(dst_pages):
+        raise ValueError(f"copy_pages of {len(src_pages)} sources into "
+                         f"{len(dst_pages)} destinations")
+    if set(src_pages) & set(dst_pages):
+        raise ValueError("copy_pages sources and destinations overlap")
+    first = leaves(pools)[0]
+    src = _page_index(src_pages, first.device)
+    dst = _page_index(dst_pages, first.device)
+    for t in _in_order(pools):
+        t.index_copy_(0, dst, t.index_select(0, src))
     return pools
 
 

@@ -46,6 +46,21 @@ keeps the config's ``num_partitions``. Prefill runs eagerly: an LRU of
 ``cache_size`` prefill step functions keyed by (bucket, n, strategy)
 stands where the JAX engine keeps its compiled steps.
 
+Cross-request prefix cache (``EngineOptions.prefix_cache="on"``; off
+by default): a refcounted page trie with copy-on-write
+(``serve.paged_kv``). Admission binds a prompt's longest published
+prefix and prefills the tail only; the end of prefill, retirement and
+cancellation publish a slot's written full pages. Before a step writes,
+``_ensure`` makes the written pages private (a device copy on the
+current stream, queued before the step, eager or replayed), preempting
+while the pool is dry. ``"off"`` gives the allocator's earlier page
+tables exactly.
+
+``cancel(req)`` ends a request from any live stage (queued, prefill,
+decode, preempted), releases its slot, pages or host pages, and calls
+its ``on_done`` hook; ``submit`` takes ``on_token`` / ``on_done``.
+Cancelled requests are kept apart from ``done``.
+
 Options of the JAX engine whose feature is not ported yet raise
 ``NotImplementedError`` naming the ROADMAP.md slice that brings it;
 none is accepted and then ignored.
@@ -79,6 +94,7 @@ from repro_torch.serve.scheduler import Scheduler
 __all__ = ["Engine", "EngineOptions", "quantile"]
 
 PREEMPT_POLICIES = ("auto", "recompute", "offload", "never")
+PREFIX_CACHE_MODES = ("on", "off")
 ATTN_KERNELS = ("auto",) + _KERNELS
 
 
@@ -112,9 +128,11 @@ class EngineOptions:
     preempt_mfu: float = 0.5           # assumed MFU of a re-prefill (cost)
     attn_kernel: str = "auto"          # auto | kernel | gather
     decode_graph: bool = True          # CUDA: capture the decode step
+    prefix_cache: str = "off"          # on | off: cross-request reuse
+    storm_every: int = 0               # N > 0: preempt a victim every N
+                                       # steps (preemption-storm tests)
     device: Optional[str] = None       # None = cuda (raises without CUDA)
-    # not ported yet: each raises NotImplementedError when set
-    prefix_cache: str = "off"
+    # not ported yet: raises NotImplementedError when set
     devices: int = 0
 
     @property
@@ -128,10 +146,9 @@ class EngineOptions:
             raise ValueError(f"attn_kernel must be one of {ATTN_KERNELS}")
         if self.measure not in ("auto", "wallclock", "simulate"):
             raise ValueError("measure must be auto, wallclock or simulate")
-        if self.prefix_cache != "off":
-            raise NotImplementedError(
-                "the prefix cache comes with ROADMAP.md's 'Prefix cache "
-                "and cancel' slice")
+        if self.prefix_cache not in PREFIX_CACHE_MODES:
+            raise ValueError(
+                f"prefix_cache must be one of {PREFIX_CACHE_MODES}")
         if self.devices > 1:
             raise NotImplementedError(
                 "multi-device serving comes with ROADMAP.md's 'Expert "
@@ -164,7 +181,7 @@ class Engine:
             max_slots=opts.max_slots,
             max_pages_per_seq=opts.max_pages_per_seq,
             dtype=dtype_of(cfg.compute_dtype),
-            device=self.device)
+            device=self.device, prefix_cache=(opts.prefix_cache == "on"))
         self.scheduler = Scheduler(self.kv, chunk=opts.chunk,
                                    full_reserve=(opts.preempt == "never"))
         measure_fn = opts.measure_fn
@@ -198,6 +215,7 @@ class Engine:
                                     and host_offload_supported())
         self._next_rid = 0
         self.step_count = 0
+        self._storm_tick = 0
         self.preempts: Dict[str, int] = {"recompute": 0, "offload": 0}
         # one entry per preemption: the victim, the mode applied and,
         # under "auto" with offload allowed, the two costs compared
@@ -206,17 +224,22 @@ class Engine:
         self.decode_tokens = 0
         self.step_s: Dict[str, List[float]] = {"prefill": [], "decode": []}
         self.done: List[Request] = []
+        # cancelled requests are kept apart from ``done``: their output is
+        # cut short (often empty), so they would skew the latency figures
+        self.cancelled: List[Request] = []
+        self.cancelled_by_stage: Dict[str, int] = {}
 
     # -- request API -----------------------------------------------------
     def submit(self, prompt, *, max_new_tokens: int = 32,
                eos_id: Optional[int] = None, stop=(),
                sampling: Optional[SamplingParams] = None,
-               priority: int = 0,
+               priority: int = 0, on_token=None, on_done=None,
                arrival_s: Optional[float] = None) -> Request:
         req = Request(rid=self._next_rid, prompt=np.asarray(prompt),
                       max_new_tokens=max_new_tokens, eos_id=eos_id,
                       stop=stop, sampling=sampling or SamplingParams(),
-                      priority=priority,
+                      priority=priority, on_token=on_token,
+                      on_done=on_done,
                       arrival_s=(time.perf_counter() if arrival_s is None
                                  else arrival_s))
         self._next_rid += 1
@@ -227,6 +250,27 @@ class Engine:
                 f"({self.kv.max_slot_tokens} tokens per slot)")
         self.scheduler.submit(req)
         return req
+
+    def cancel(self, req: Request) -> bool:
+        """Cancel ``req`` from whatever stage it is in, releasing its
+        slot, pages or host pages, and call its ``on_done``. True if the
+        request was live (now CANCELLED); False if it had already ended,
+        a race every disconnect meets, so not an error. Call between
+        steps, on the thread that drives the engine: a cancelled slot's
+        page-table row is back at the sink before the next decode step
+        copies the table in."""
+        if req.state in (RequestState.DONE, RequestState.CANCELLED):
+            return False
+        stage = self.scheduler.cancel(req)
+        req.state = RequestState.CANCELLED
+        req.finish_reason = "cancelled"
+        req.finish_s = time.perf_counter()
+        self.cancelled_by_stage[stage] = \
+            self.cancelled_by_stage.get(stage, 0) + 1
+        self.cancelled.append(req)
+        if req.on_done is not None:
+            req.on_done(req)
+        return True
 
     @property
     def has_work(self) -> bool:
@@ -322,7 +366,9 @@ class Engine:
     # -- preemption ------------------------------------------------------
     def _pick_victim(self) -> Optional[Request]:
         """Lowest priority, then youngest, among the running requests
-        that hold cache bytes (all running requests when none does)."""
+        that hold cache bytes exclusively (all running requests when none
+        does: with the prefix cache every page may be shared, and a
+        victim's dropped references still make trie pages evictable)."""
         running = list(self.scheduler.running.values())
         cands = [r for r in running if self.kv.held_bytes(r.slot) > 0]
         cands = cands or running
@@ -363,26 +409,45 @@ class Engine:
         self.preempt_log.append(dict(entry, mode=mode))
 
     def _ensure(self, slot: int, tokens: int) -> bool:
-        """Grow ``slot`` until it can hold ``tokens``, preempting victims
-        while the pool is dry. False if the slot's own request was
-        chosen as the victim (it skips this step)."""
+        """Grow ``slot`` until it can hold ``tokens``, then make the pages
+        it writes private (copy-on-write, a no-op with the prefix cache
+        off), preempting victims while the pool is dry. False if the
+        slot's own request was chosen as the victim (it skips this
+        step)."""
         while self.kv.slot_capacity(slot) < tokens:
             if self.kv.grow_slot(slot):
                 continue
-            victim = self._pick_victim()
-            if victim is None:
-                raise RuntimeError("page pool wedged: no free pages and "
-                                   "no victim")
-            vslot = victim.slot
-            self._do_preempt(victim)
-            if vslot == slot:
+            if not self._preempt_for(slot, "no free pages"):
+                return False
+        while not self.kv.ensure_private(slot, tokens):
+            if not self._preempt_for(slot, "no copy-on-write page"):
                 return False
         return True
+
+    def _preempt_for(self, slot: int, why: str) -> bool:
+        """Preempt one victim for ``slot``'s sake; False if the victim
+        was ``slot``'s own request."""
+        victim = self._pick_victim()
+        if victim is None:
+            raise RuntimeError(f"page pool wedged: {why} and no victim")
+        vslot = victim.slot
+        self._do_preempt(victim)
+        return vslot != slot
 
     # -- engine iteration ------------------------------------------------
     def step(self) -> Dict[str, Any]:
         """Admit, then run one step (a prefill chunk or a decode)."""
         t0 = time.perf_counter()
+        # storm injection (tests): preempt a victim every storm_every
+        # steps, whatever the pool holds
+        if (self.opts.storm_every and self.opts.preempt != "never"
+                and self.scheduler.running):
+            self._storm_tick += 1
+            if self._storm_tick >= self.opts.storm_every:
+                self._storm_tick = 0
+                victim = self._pick_victim()
+                if victim is not None:
+                    self._do_preempt(victim)
         self.scheduler.admit()
         action, req = self.scheduler.next_action()
         info: Dict[str, Any] = {"kind": action}
@@ -420,6 +485,9 @@ class Engine:
         self.prefill_tokens += c
         self.scheduler.prefill_advanced(req)
         if req.remaining_prefill == 0:
+            # publish the finished prompt's full pages for later requests
+            # that share the prefix (a no-op with the prefix cache off)
+            kv.cache_slot_prefix(slot, req.prefill_tokens)
             req.state = RequestState.DECODE
             # a recompute re-prefill replays tokens already emitted: its
             # final-chunk sample is the pending decode input, not new
@@ -463,6 +531,10 @@ class Engine:
         return {"tokens": len(slots)}
 
     def _retire(self, req: Request) -> None:
+        # publish the written full pages (prompt and generated turn)
+        # before the slot frees: the trie's reference keeps them for the
+        # conversation's next turn
+        self.kv.cache_slot_prefix(req.slot, req.prefill_tokens)
         self.scheduler.finish(req)
         self.done.append(req)
 
@@ -484,6 +556,8 @@ class Engine:
             "device": str(self.device),
             "attn_kernel": self.attn_kernel,
             "requests_done": len(self.done),
+            "requests_cancelled": len(self.cancelled),
+            "cancelled_by_stage": dict(self.cancelled_by_stage),
             "tokens_generated": sum(len(r.output) for r in self.done),
             "engine_steps": self.step_count,
             "prefill_steps": len(pre),
@@ -503,6 +577,18 @@ class Engine:
             "p99_itl_s": quantile(itl, 99),
             "decode_captures": self._decode.captures,
             "decode_replays": self._decode.replays,
+            "prefix_cache": self.opts.prefix_cache,
+            "prefix_hits": self.kv.prefix_hits,
+            "prefix_misses": self.kv.prefix_misses,
+            "prefix_hit_tokens": self.kv.prefix_hit_tokens,
+            "prefix_hit_rate": (
+                self.kv.prefix_hits
+                / max(1, self.kv.prefix_hits + self.kv.prefix_misses)),
+            "prefix_cow_copies": self.kv.prefix_cow_copies,
+            "prefix_cow_bytes": self.kv.prefix_cow_bytes,
+            "prefix_evicted_pages": self.kv.prefix_evicted_pages,
+            "prefix_cached_pages": self.kv.prefix_cached_pages,
+            "prefix_shared_pages": self.kv.prefix_shared_pages,
             "preempt_recompute": self.preempts["recompute"],
             "preempt_offload": self.preempts["offload"],
             "resumes": self.scheduler.resume_count,

@@ -4,16 +4,19 @@
 A request moves QUEUED -> PREFILL -> DECODE -> DONE, possibly bouncing
 through PREEMPTED (back to the scheduler's resume queue) when the paged
 KV pool runs dry: by recompute (it re-prefills at resume) or by offload
-(its pages wait in host memory and it resumes where it stopped). Stopping (``max_new_tokens``, ``eos_id``, ``stop`` sequences) is applied
-host-side. Every emitted token is timestamped, so TTFT and inter-token
-latency are reported apart: a preemption stall shows as one long
-inter-token gap.
+(its pages wait in host memory and it resumes where it stopped).
+``Engine.cancel`` ends a request from any of these stages as CANCELLED.
+Stopping (``max_new_tokens``, ``eos_id``, ``stop`` sequences) is applied
+host-side; the ``on_token`` hook sees every emitted token and
+``on_done`` the request's end (done or cancelled), once. Every emitted
+token is timestamped, so TTFT and inter-token latency are reported
+apart: a preemption stall shows as one long inter-token gap.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
@@ -29,6 +32,7 @@ class RequestState(enum.Enum):
     DECODE = "decode"
     PREEMPTED = "preempted"
     DONE = "done"
+    CANCELLED = "cancelled"            # terminal: the client went away
 
 
 @dataclasses.dataclass
@@ -40,6 +44,8 @@ class Request:
     stop: Sequence[Sequence[int]] = ()     # token-id stop sequences
     sampling: SamplingParams = SamplingParams()
     priority: int = 0                      # higher = preempted later
+    on_token: Optional[Callable[[int, "Request"], None]] = None
+    on_done: Optional[Callable[["Request"], None]] = None
     arrival_s: float = 0.0                 # submit timestamp (perf_counter)
 
     # -- runtime state (owned by the scheduler/engine) -------------------
@@ -47,7 +53,7 @@ class Request:
     slot: int = -1                         # continuous-batch slot index
     prefill_pos: int = 0                   # source tokens already cached
     output: List[int] = dataclasses.field(default_factory=list)
-    finish_reason: str = ""                # "eos" | "length" | "stop"
+    finish_reason: str = ""    # "eos" | "length" | "stop" | "cancelled"
     first_token_s: float = 0.0
     finish_s: float = 0.0
     token_times: List[float] = dataclasses.field(default_factory=list)
@@ -102,6 +108,8 @@ class Request:
             self.first_token_s = now
         self.output.append(token)
         self.token_times.append(now)
+        if self.on_token is not None:
+            self.on_token(token, self)
         if self.eos_id is not None and token == self.eos_id:
             self.finish_reason = "eos"
         elif self.stop and stop_hit(self.output, self.stop) is not None:
@@ -112,6 +120,8 @@ class Request:
             return False
         self.state = RequestState.DONE
         self.finish_s = now
+        if self.on_done is not None:
+            self.on_done(self)
         return True
 
     @property

@@ -14,6 +14,13 @@ single-device part of ``repro.serve.scheduler``.
   again (``can_restore``). Resumes go strictly before fresh admissions,
   oldest first, with head-of-line blocking in both queues, so the
   oldest work always makes progress.
+* **Prefix reuse**: fresh admissions and recompute resumes go through
+  ``StateCache.alloc_slot_prefix`` (floored to a page under
+  ``full_reserve``) and start prefill at the cached length; a hit may
+  admit a request whose whole reservation ``can_admit`` would refuse
+  (``match_prefix``). No-ops with the prefix cache off.
+* **Cancellation** (:meth:`cancel`) releases whatever a request holds,
+  from any live stage.
 * **Interleaving**: prefill is chunked and alternates with decode when
   both have work, bounding decode-token latency by one chunk.
 """
@@ -77,11 +84,14 @@ class Scheduler:
                 req = self.waiting[0]
                 need = (req.total_budget if self.full_reserve
                         else req.prompt_len)
-                if not self.kv.can_admit(need):
+                # a cached prefix can make room the reservation lacks
+                hit, _ = self.kv.match_prefix(req.prefill_tokens, need)
+                if hit is None and not self.kv.can_admit(need):
                     break
-                self.kv.alloc_slot(slot, need)
+                req.prefill_pos = self.kv.alloc_slot_prefix(
+                    slot, need, req.prefill_tokens,
+                    page_aligned=self.full_reserve)
                 self.waiting.popleft()
-                req.prefill_pos = 0
                 req.state = RequestState.PREFILL
             else:
                 break
@@ -98,8 +108,9 @@ class Scheduler:
             req.state = (RequestState.PREFILL if req.resume_to == "prefill"
                          else RequestState.DECODE)
         else:                                   # recompute: re-prefill
-            self.kv.alloc_slot(slot, req.prefill_len)
-            req.prefill_pos = 0
+            req.prefill_pos = self.kv.alloc_slot_prefix(
+                slot, req.prefill_len, req.prefill_tokens,
+                page_aligned=self.full_reserve)
             req.state = RequestState.PREFILL
         self.resuming.remove(req)
         req.preempt_mode = ""
@@ -137,6 +148,43 @@ class Scheduler:
         req.preempt_count += 1
         self.resuming.append(req)
         return mode
+
+    # -- cancellation ----------------------------------------------------
+    def cancel(self, req: Request) -> str:
+        """Release everything ``req`` holds and return the stage it was
+        in ("queued" | "prefill" | "decode" | "preempted"); the engine
+        owns the state change and the hook:
+
+        * QUEUED: leave the waiting queue (nothing is allocated);
+        * PREFILL / DECODE: publish the written full prefix pages (a
+          later request with the same prompt still gains; a no-op with
+          the prefix cache off), then free the slot;
+        * PREEMPTED: leave the resume queue; an offload victim's host
+          pages are dropped (its device pages went at offload).
+        """
+        stage = req.state.value
+        if req.state == RequestState.QUEUED:
+            self.waiting.remove(req)
+        elif req.state in (RequestState.PREFILL, RequestState.DECODE):
+            slot = req.slot
+            assert self.running.get(slot) is req, \
+                f"request {req.rid} not running in slot {slot}"
+            self.kv.cache_slot_prefix(slot, req.prefill_tokens)
+            self.kv.free_slot(slot)
+            if slot in self._prefilling:
+                self._prefilling.remove(slot)
+            del self.running[slot]
+            req.slot = -1
+        elif req.state == RequestState.PREEMPTED:
+            self.resuming.remove(req)
+            if req.preempt_mode == "offload":
+                self.kv.drop_offload(req.rid)
+            req.preempt_mode = ""
+            req.cached_tokens = 0
+        else:
+            raise ValueError(f"cancel of request {req.rid} in terminal "
+                             f"state {req.state.value}")
+        return stage
 
     # -- step planning ---------------------------------------------------
     def decode_slots(self) -> List[int]:

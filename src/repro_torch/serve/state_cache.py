@@ -6,9 +6,11 @@ What the engine needs from "the cache": slot lifecycle (``alloc_slot``
 / ``grow_slot`` / ``free_slot`` and the host ``lens`` array), admission
 budgeting (``admissible``, ``can_admit``, ``held_bytes``), preemption
 by offload (``offload_slot`` / ``restore_slot`` / ``can_restore`` /
-``drop_offload``: the slot's state parked in host memory), the step
-inputs (``pools``; prefill's ``device_page_table``, ``device_lens``,
-``sink_row``; decode's ``decode_inputs``) and byte accounting. The one implementation here is
+``drop_offload``: the slot's state parked in host memory), the prefix
+cache (``match_prefix``, ``alloc_slot_prefix``, ``cache_slot_prefix``,
+``ensure_private``: no-op defaults here), the step inputs (``pools``;
+prefill's ``device_page_table``, ``device_lens``, ``sink_row``; decode's
+``decode_inputs``) and byte accounting. The one implementation here is
 :class:`~repro_torch.serve.paged_kv.PagedKVCache`; the constant-state
 and composite caches come with ROADMAP.md's 'Other architectures'
 slice.
@@ -21,7 +23,7 @@ tensors, since it runs eagerly.
 from __future__ import annotations
 
 import abc
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -132,6 +134,50 @@ class StateCache(abc.ABC):
     @abc.abstractmethod
     def host_bytes(self) -> int:
         """Bytes currently parked in host memory."""
+
+    # -- cross-request prefix cache ----------------------------------------
+    # No-op defaults, so the engine and scheduler never ask which cache
+    # they hold: a cache without shareable page state never reports a
+    # hit. PagedKVCache overrides them (refcounted pages, a trie,
+    # copy-on-write) when built with ``prefix_cache=True``.
+
+    prefix_enabled: bool = False
+    prefix_hits: int = 0
+    prefix_misses: int = 0
+    prefix_hit_tokens: int = 0
+    prefix_evicted_pages: int = 0
+    prefix_cow_copies: int = 0
+    prefix_cow_bytes: int = 0
+    prefix_cached_pages: int = 0
+    prefix_shared_pages: int = 0
+
+    def match_prefix(self, token_ids, total_tokens: int
+                     ) -> Tuple[Optional[int], int]:
+        """``(shard, cached_tokens)`` of a usable cached prefix of
+        ``token_ids`` for a request of ``total_tokens``, or ``(None,
+        0)`` on a miss (admission then goes by :meth:`can_admit`)."""
+        return None, 0
+
+    def alloc_slot_prefix(self, slot: int, tokens: int, token_ids,
+                          *, page_aligned: bool = False) -> int:
+        """:meth:`alloc_slot` that binds the longest cached prefix of
+        ``token_ids`` instead of reserving it afresh. Returns the prefix
+        tokens already cached (``lens[slot]`` is set to it): 0 here.
+        ``page_aligned`` floors the hit to a page boundary, so no shared
+        page is ever written (the full-reserve scheduler)."""
+        self.alloc_slot(slot, tokens)
+        return 0
+
+    def cache_slot_prefix(self, slot: int, token_ids) -> None:
+        """Publish the slot's written full pages into the prefix index
+        (``token_ids``: the tokens written so far). A no-op here."""
+
+    def ensure_private(self, slot: int, tokens: int) -> bool:
+        """Make positions ``lens[slot]:tokens`` writable without touching
+        state shared with other requests (copy-on-write). False when no
+        page can be had for the copy: the caller preempts a victim and
+        retries, as after :meth:`grow_slot`."""
+        return True
 
     # -- step inputs -------------------------------------------------------
     def _upload(self, host: np.ndarray) -> torch.Tensor:
