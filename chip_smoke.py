@@ -51,7 +51,7 @@ order; any failure ends the run with a non-zero exit and no result line:
    MoE layer and ``replay_vs_eager``: one replay against one eager step
    on the same inputs, the same kernels of the port, the recorded
    launches, logits within 2^-7·max|logit| + 1e-5). Then capture vs
-   eager in turns (4 pairs of the same 16-request run, each mode's
+   eager in turns (2 pairs of the same 16-request run, each mode's
    10-step profile: decode step ms, tokens/s, busy share, kernels and
    host launch calls a step), and offload: the same run under
    ``preempt="offload"`` (at least one offload, each swap's bytes and
@@ -79,10 +79,29 @@ order; any failure ends the run with a non-zero exit and no result line:
    ``on_done`` fired once; the others complete, and a cancel of a
    finished request returns False; at 2 layers in fp32 with capacity
    factor 8.0 the survivors' tokens equal the run without cancels;
-7. kernel vs gather: equal greedy decode tokens at full width, 2
+7. telemetry, replay and ingress, moe-gpt3-s at full width, bf16,
+   captured (``obs_phase``): phase 4's run with the tracer off and on in
+   turns, 2 pairs (launches, launches a replay, captures, replays and
+   builds equal; p50 decode step ms and decode tokens/s each way, the
+   ``telemetry-overhead`` line; the first traced run's trace written to
+   ``build/`` and checked: B/E balanced, ADMIT and RETIRE a request, an
+   ``engine.step`` span a step, a ``PREFILL`` span a prefill step); the
+   same run with ``/metrics`` scraped every 50 ms from a thread while
+   the engine steps, a final scrape equal to ``stats()``; a Poisson
+   replay of 64 requests at once (the sustained req/s) and offered at
+   50% and 120% of it (req/s, tok/s, TTFT, ITL and latency p50 / p99
+   from the registry); the HTTP/SSE ingress: two requests alone equal
+   to in-process, 8 SSE clients against the same 8 in-process (TTFT,
+   ITL, each token's SSE delay after its emit, the p50 decode step
+   under the ingress), a client hanging up mid-stream (cancelled within
+   one engine step, ``check_integrity()``, every page back), ``reject``
+   giving 429 with ``Retry-After``; at 2 layers in fp32 with capacity
+   factor 8.0 SSE tokens, sequential and 8 at once, equal in-process,
+   and a ``degrade``-clamped stream a prefix of its request alone;
+8. kernel vs gather: equal greedy decode tokens at full width, 2
    layers, fp32, through the kernel captured and eager and the gather
    path;
-8. serve DeepSeek-V2-Lite: full width and depth (27 layers, 16.2 B
+9. serve DeepSeek-V2-Lite: full width and depth (27 layers, 16.2 B
    parameters) in bf16 through the launcher's ``main``, then through
    ``Engine`` with 8 seeded requests: memory right after the engine's
    init under 40 GB, the MLA kernel launched once per layer of every
@@ -91,20 +110,20 @@ order; any failure ends the run with a non-zero exit and no result line:
    turns (2 pairs); ``preempt="auto"`` with a 48-page pool, each
    victim's ``PreemptionCost`` (recompute and offload seconds, choice)
    and the swap bytes and GB/s;
-9. prefix cache, DeepSeek-V2-Lite: as 5 over the same weights, with 8
+10. prefix cache, DeepSeek-V2-Lite: as 5 over the same weights, with 8
    conversations, one pair;
-10. kernel vs gather, DeepSeek-V2-Lite: as 7, at 2 layers;
-11. prefix on vs off, exact: both models at 2 layers in fp32, capacity
+11. kernel vs gather, DeepSeek-V2-Lite: as 7, at 2 layers;
+12. prefix on vs off, exact: both models at 2 layers in fp32, capacity
    factor 8.0, the chat trace through the captured kernel path: greedy
    tokens of both turns equal with the cache on and off (where a pair
    parts: the step, the top-2 logit gap there and the largest K/V
    difference of reused against recomputed pages, then a failure);
-12. train: full-width moe-gpt3-s (bf16 compute, fp32 params, AdamW),
+13. train: full-width moe-gpt3-s (bf16 compute, fp32 params, AdamW),
    batch 8 x 1024, n = 4, through ``runtime.train``: 6 steps under NONE,
    2 under each of S1-S4; every loss finite and each kernel launched
    exactly ``LAUNCHES_PER_STEP`` times a step; step ms, tokens/s, peak
    memory and a profiled step's device-busy share per strategy;
-13. adaptive (n, strategy): full-width moe-gpt3-s trained by
+14. adaptive (n, strategy): full-width moe-gpt3-s trained by
    ``runtime.train`` through the online controller over batches of
    8192, 4096 and 2048 tokens (``ADAPTIVE_TRACE``, a retune timer of 4
    steps), candidates measured by wall clock on the card beside the
@@ -116,12 +135,12 @@ order; any failure ends the run with a non-zero exit and no result line:
    of a launch (``eta_sigma``); ``Engine`` with its adaptive defaults on
    8 requests, launches per prefill chunk at each bucket's resolved n,
    and a mid-run wall-clock probe that must write only the sink page;
-14. card vs CPU: 3 fp32 steps of 2-layer full-width moe-gpt3-s on the
+15. card vs CPU: 3 fp32 steps of 2-layer full-width moe-gpt3-s on the
    card (kernels) and on the CPU (plain versions), losses within
    ``CARD_VS_CPU_RTOL``;
-15. the ``kernels`` JSON line; 16. the ``ok`` JSON line, last.
+16. the ``kernels`` JSON line; 17. the ``ok`` JSON line, last.
 
-The serving phases 4-11 fix n = 4 (``adaptive=False``, the launcher's
+The serving phases 4-12 fix n = 4 (``adaptive=False``, the launcher's
 ``--num-partitions 4``), so their numbers compare with earlier runs.
 
 Exits non-zero without CUDA, and in a directory holding this file alone.
@@ -774,7 +793,7 @@ def train_kernel_cases(torch) -> list:
 
 
 # ---------------------------------------------------------------------------
-# phases 4 and 7: serving
+# phases 4 and 8: serving
 # ---------------------------------------------------------------------------
 
 def serve_config(num_layers=None, dtype="bfloat16", arch="moe-gpt3-s"):
@@ -1115,7 +1134,7 @@ def capture_vs_eager(torch, build, cfg, reqs, pairs, params, attn_kernel,
 
 
 # ---------------------------------------------------------------------------
-# phases 8 and 10: serving DeepSeek-V2-Lite
+# phases 9 and 11: serving DeepSeek-V2-Lite
 # ---------------------------------------------------------------------------
 
 DEEPSEEK = "deepseek-v2-lite-16b"
@@ -1366,7 +1385,7 @@ def offload_phase(torch, build, params) -> collections.Counter:
 
 
 # ---------------------------------------------------------------------------
-# phases 5, 6, 9 and 11: the prefix cache and cancel
+# phases 5, 6, 10 and 12: the prefix cache and cancel
 # ---------------------------------------------------------------------------
 
 SYSTEM_LEN = 256                        # the chat trace's shared prompt
@@ -1810,7 +1829,575 @@ def cancel_phase(torch, build, params) -> collections.Counter:
 
 
 # ---------------------------------------------------------------------------
-# phases 12 and 14: training
+# phase 7: telemetry, the Poisson replay and the HTTP/SSE ingress
+# ---------------------------------------------------------------------------
+
+REPLAY_REQUESTS = 64
+REPLAY_PROMPT, REPLAY_GEN = (4, 256), (2, 64)
+
+
+def obs_engine(cfg, params, obs=None, **opts):
+    """A captured ``Engine`` at the serving shapes, n fixed, recording
+    into ``obs``."""
+    from repro_torch.serve import Engine, EngineOptions
+    return Engine(cfg, params, options=EngineOptions(
+        device="cuda", obs=obs, adaptive=False, **dict(ENGINE, **opts)))
+
+
+def wait_for(pred, what: str, timeout: float = 120.0) -> None:
+    deadline = time.perf_counter() + timeout
+    while not pred():
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def metric(text: str, name: str) -> float:
+    """One sample of a Prometheus exposition."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.rsplit(" ", 1)[1])
+    raise AssertionError(f"{name} not in the exposition")
+
+
+def check_trace(doc, engine, n: int) -> dict:
+    """A recorded trace: B/E balanced and nested per (pid, tid); ``n``
+    ADMIT and RETIRE instants; one ``engine.step`` span a step and one
+    ``PREFILL`` span a prefill step that ran the model."""
+    real = [e for e in doc["traceEvents"] if e["ph"] != "M"]
+    stacks = {}
+    for e in real:
+        key = (e["pid"], e["tid"])
+        if e["ph"] == "B":
+            stacks.setdefault(key, []).append(e["name"])
+        elif e["ph"] == "E" and (not stacks.get(key)
+                                 or stacks[key].pop() != e["name"]):
+            raise AssertionError(f"unbalanced E event {e}")
+    if any(stacks.values()):
+        raise AssertionError(f"spans left open: {stacks}")
+    names = collections.Counter(e["name"] for e in real)
+    s = engine.stats()
+    want = {"ADMIT": n, "RETIRE": n, "engine.step": s["engine_steps"],
+            "PREFILL": s["prefill_steps"]}
+    got = {k: names[k] for k in want}
+    if got != want:
+        raise AssertionError(f"trace counts {got} != {want}")
+    return dict(events=len(real), preempt=names["PREEMPT"],
+                resume=names["RESUME"], **got)
+
+
+def telemetry_pairs(torch, build, cfg, params, reqs, pairs=2) -> tuple:
+    """Phase 4's run (16 requests, recompute with a 65-page pool) with
+    the tracer off and on in turns, ``pairs`` pairs: the launches of the
+    run and those recorded a replay, captures, replays and builds must
+    be equal in every run; the first traced run's trace is written to
+    ``build/`` and checked (``check_trace``). Logs a ``telemetry`` line a
+    run and returns the summary and the launches."""
+    import gc
+    import statistics
+    from repro_torch.obs import Recorder, Tracer
+    runs, launches, keys = [], collections.Counter(), (
+        "per_replay", "launches", "decode_captures", "decode_replays",
+        "prefill_builds", "decode_steps", "prefill_steps")
+    trace_row = None
+    for pair in range(pairs):
+        for on in ((False, True) if pair % 2 == 0 else (True, False)):
+            obs = Recorder(tracer=Tracer()) if on else Recorder()
+            engine = obs_engine(cfg, params, obs, preempt="recompute",
+                                num_pages=65)
+            engine, handles, host, chunks = serve(
+                cfg, reqs, engine=engine, reset=build.reset_launches)
+            got = collections.Counter(build.LAUNCHES)
+            check_serve_launches(cfg, engine, got, chunks,
+                                 "paged_decode_attention")
+            check_replays(cfg, engine, "paged_decode_attention")
+            s = engine.stats()
+            row = dict(run=len(runs), pair=pair, tracer=on,
+                       p50_decode_step_ms=s["p50_decode_step_s"] * 1e3,
+                       decode_tok_per_s=s["decode_tok_per_s"],
+                       wall_s=host["wall_s"],
+                       per_replay=dict(engine._decode.launches),
+                       launches=dict(got), **{k: s[k] for k in keys[2:]})
+            if on and trace_row is None:
+                path = ROOT / "build" / "telemetry_trace.json"
+                path.parent.mkdir(exist_ok=True)
+                obs.tracer.write(str(path))
+                trace_row = dict(check_trace(json.loads(path.read_text()),
+                                             engine, len(reqs)),
+                                 path=str(path.relative_to(ROOT)))
+                log("telemetry-trace " + json.dumps(trace_row))
+            log("telemetry " + json.dumps(row))
+            runs.append(row)
+            launches += got
+            del engine, handles
+            gc.collect()
+    first = {k: runs[0][k] for k in keys}
+    for r in runs[1:]:
+        if {k: r[k] for k in keys} != first:
+            raise AssertionError(f"run {r['run']} (tracer {r['tracer']}) "
+                                 f"launched or built differently: "
+                                 f"{ {k: r[k] for k in keys} } != {first}")
+
+    def med(on, key):
+        return statistics.median(r[key] for r in runs if r["tracer"] == on)
+    off_ms, on_ms = med(False, "p50_decode_step_ms"), \
+        med(True, "p50_decode_step_ms")
+    summary = dict(arch=cfg.name, pairs=pairs, off_p50_decode_step_ms=[
+        r["p50_decode_step_ms"] for r in runs if not r["tracer"]],
+        on_p50_decode_step_ms=[r["p50_decode_step_ms"] for r in runs
+                               if r["tracer"]],
+        off_decode_tok_per_s=med(False, "decode_tok_per_s"),
+        on_decode_tok_per_s=med(True, "decode_tok_per_s"),
+        overhead_pct=100.0 * (on_ms - off_ms) / off_ms,
+        per_replay=first["per_replay"], trace=trace_row)
+    log("telemetry-overhead " + json.dumps(summary))
+    return summary, launches
+
+
+def metrics_run(torch, build, cfg, params, reqs) -> collections.Counter:
+    """Phase 4's run with a ``MetricsServer`` started after ``warmup()``
+    and a thread scraping ``/metrics`` every 50 ms while the main thread
+    steps (the refresh makes no CUDA call); then a scrape after the run
+    must agree with ``stats()``. Returns the run's launches."""
+    import threading
+    import urllib.request
+    from repro_torch.obs import MetricsServer, Recorder
+    engine = obs_engine(cfg, params, Recorder(), preempt="recompute",
+                        num_pages=65)
+    engine.warmup()
+    server = MetricsServer(engine.obs.registry, port=0,
+                           refresh=engine._refresh_gauges).start()
+    scrapes, errors, stop = [], [], threading.Event()
+
+    def scrape():
+        return urllib.request.urlopen(server.url + "/metrics",
+                                      timeout=30).read().decode()
+
+    def scraper():
+        while not stop.is_set():
+            try:
+                step = engine.step_count
+                scrapes.append((step, scrape()))
+            except Exception as e:                  # noqa: BLE001
+                errors.append(repr(e))
+            stop.wait(0.05)
+
+    chunks = 0
+    try:
+        handles = [engine.submit(p, max_new_tokens=m) for p, m in reqs]
+        build.reset_launches()
+        thread = threading.Thread(target=scraper, daemon=True)
+        thread.start()
+        while engine.has_work:
+            info = engine.step()
+            if info.get("tokens"):
+                chunks += (1 if info["kind"] == "decode" else
+                           prefill_chunks(engine, info["bucket"]))
+        stop.set()
+        thread.join(timeout=60)
+        final = scrape()
+    finally:
+        stop.set()
+        server.stop()
+    launches = collections.Counter(build.LAUNCHES)
+    if errors:
+        raise AssertionError(f"scrapes failed: {errors[:3]}")
+    mid = [step for step, _ in scrapes if 0 < step < engine.step_count]
+    if not mid:
+        raise AssertionError(f"no scrape in the middle of the run "
+                             f"({len(scrapes)} scrapes)")
+    s = engine.stats()
+    got = dict(
+        requests_done=metric(final, "repro_requests_done_total"),
+        tokens_generated=metric(final, "repro_tokens_generated_total"),
+        preempt_recompute=metric(final,
+                                 'repro_preempts_total{mode="recompute"}'),
+        running_slots=metric(final, "repro_running_slots"),
+        queue_waiting=metric(final, "repro_waiting_requests"),
+        free_pages=metric(final, 'repro_kv_free_pages{shard="0"}'))
+    want = dict(requests_done=s["requests_done"],
+                tokens_generated=s["tokens_generated"],
+                preempt_recompute=s["preempt_recompute"],
+                running_slots=s["running_slots"],
+                queue_waiting=s["queue_waiting"],
+                free_pages=s["free_units_by_shard"]["0"])
+    if got != want or want["running_slots"] != 0 or \
+            want["free_pages"] != engine.kv.num_pages - 1 or \
+            want["requests_done"] != len(reqs) or \
+            not want["preempt_recompute"]:
+        raise AssertionError(f"/metrics {got} != stats() {want}")
+    check_serve_launches(cfg, engine, launches, chunks,
+                         "paged_decode_attention")
+    check_replays(cfg, engine, "paged_decode_attention")
+    log("metrics-scrape " + json.dumps(dict(
+        scrapes=len(scrapes), mid_run=len(mid), steps=engine.step_count,
+        **got)))
+    return launches
+
+
+def replay_row(build, cfg, params, trace, time_scale: float,
+               offered=None) -> tuple:
+    """One ``serve.trace.replay`` of ``trace`` on a fresh captured engine
+    (the worst-case pool: nothing preempts). Returns the row (req/s,
+    tok/s and the p50 / p99 of TTFT, ITL and latency, each from the
+    registry) and the replay's launches."""
+    from repro_torch.obs import Recorder
+    from repro_torch.serve import replay
+    engine = obs_engine(cfg, params, Recorder(), preempt="recompute")
+    engine.warmup()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    done = replay(engine, trace, time_scale=time_scale)
+    wall = time.perf_counter() - t0
+    launches = collections.Counter(build.LAUNCHES)
+    for r, e in zip(done, trace):
+        if len(r.output) != e.max_new_tokens:
+            raise AssertionError(f"replay request {r.rid}: {len(r.output)} "
+                                 f"of {e.max_new_tokens} tokens")
+    check_replays(cfg, engine, "paged_decode_attention")
+    reg, s = engine.obs.registry, engine.stats()
+    if reg.get("repro_requests_done_total").value != len(trace):
+        raise AssertionError("the registry missed requests")
+    row = dict(requests=len(trace), time_scale=time_scale,
+               offered_req_per_s=offered, wall_s=wall,
+               req_per_s=len(trace) / wall,
+               tok_per_s=s["tokens_generated"] / wall,
+               decode_steps=s["decode_steps"],
+               prefill_steps=s["prefill_steps"],
+               p50_decode_step_ms=s["p50_decode_step_s"] * 1e3)
+    for key, fam in (("ttft", "repro_ttft_seconds"),
+                     ("itl", "repro_itl_seconds"),
+                     ("latency", "repro_latency_seconds")):
+        for p in (50, 99):
+            row[f"{key}_p{p}_ms"] = reg.get(fam).quantile(p) * 1e3
+    return row, launches
+
+
+def replay_phase(build, cfg, params) -> collections.Counter:
+    """``poisson_trace`` of 64 requests: all at once (``time_scale=0``,
+    the most req/s the engine sustains), then offered at ~50% and ~120%
+    of that rate. Logs a ``poisson-replay`` line a run."""
+    from repro_torch.serve import poisson_trace
+
+    def trace(rate):
+        return poisson_trace(REPLAY_REQUESTS, rate=rate,
+                             vocab_size=cfg.vocab_size,
+                             prompt_len_range=REPLAY_PROMPT,
+                             gen_len_range=REPLAY_GEN, seed=5)
+    row, launches = replay_row(build, cfg, params, trace(1.0), 0.0)
+    log("poisson-replay " + json.dumps(row))
+    peak = row["req_per_s"]
+    for share in (0.5, 1.2):
+        row, got = replay_row(build, cfg, params, trace(share * peak), 1.0,
+                              offered=share * peak)
+        log("poisson-replay " + json.dumps(dict(row, share=share)))
+        launches += got
+    return launches
+
+
+class TimedClient:
+    """An ``IngressClient`` that stamps each SSE event's arrival on the
+    process clock (``times``), so its delay after the engine's emit
+    (``Request.token_times``, same clock) can be read."""
+
+    def __init__(self, srv, timeout: float = 300.0):
+        from repro_torch.serve import IngressClient
+
+        class Client(IngressClient):
+            def _events(inner, f):
+                for ev in IngressClient._events(f):
+                    self.times.append(time.perf_counter())
+                    yield ev
+        self.client = Client(srv.host, srv.port, timeout=timeout)
+        self.times = []
+
+    def generate(self, prompt, **kw):
+        self.times = []
+        return self.client.generate(prompt, **kw)
+
+
+def steps_between(engine, rid: int) -> int:
+    """``engine.step`` spans that started after the request's
+    ``DISCONNECT`` (stamped once its cancel is queued) and before its
+    ``CANCEL``."""
+    from repro_torch.obs import PID_INGRESS, PID_REQUESTS
+    ev = engine.obs.tracer.export()["traceEvents"]
+    t0 = next(e["ts"] for e in ev if e["name"] == "DISCONNECT"
+              and e["pid"] == PID_INGRESS and e["tid"] == rid)
+    t1 = next(e["ts"] for e in ev if e["name"] == "CANCEL"
+              and e["pid"] == PID_REQUESTS and e["tid"] == rid)
+    return sum(1 for e in ev if e["name"] == "engine.step"
+               and t0 < e["ts"] < t1)
+
+
+def serve_alone(engine, reqs) -> list:
+    """Each request served alone, one after the other, in-process."""
+    out = []
+    for p, m in reqs:
+        r = engine.submit(p, max_new_tokens=m)
+        engine.run_until_idle()
+        out.append(list(r.output))
+    return out
+
+
+# 8 SSE clients in a process of their own (stdin: host, port and the
+# requests as JSON; stdout: each stream's status, tokens, TTFT and the
+# arrival of each event on time.perf_counter(), which is CLOCK_MONOTONIC
+# on Linux and so comparable with the engine's stamps)
+CLIENT_PROCESS = r"""
+import json, sys, threading, time
+sys.path.insert(0, sys.argv[1])
+from repro_torch.serve.ingress import IngressClient
+spec = json.loads(sys.stdin.read())
+out = [None] * len(spec["reqs"])
+
+def run(i, prompt, m):
+    times = []
+
+    class Client(IngressClient):
+        def _events(self, f):
+            for ev in IngressClient._events(f):
+                times.append(time.perf_counter())
+                yield ev
+    r = Client(spec["host"], spec["port"], timeout=300).generate(
+        prompt, max_new_tokens=m)
+    out[i] = dict(status=r.status, tokens=r.tokens, ttft_s=r.ttft_s,
+                  times=times)
+
+threads = [threading.Thread(target=run, args=(i, p, m), daemon=True)
+           for i, (p, m) in enumerate(spec["reqs"])]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join(300)
+print(json.dumps(out))
+"""
+
+
+def ingress_burst(engine, srv, reqs, *, remote: bool) -> dict:
+    """``reqs`` as SSE streams all at once, from client threads of this
+    process or (``remote``) of a process of their own: TTFT and ITL p50
+    at the client, the engine's ITL p50, each token's SSE delay after
+    its emit (p50, p99) and the p50 decode step meanwhile."""
+    import concurrent.futures
+    from repro_torch.obs import quantile
+    mark, d0 = len(engine.done), len(engine.step_s["decode"])
+    if remote:
+        spec = dict(host=srv.host, port=srv.port,
+                    reqs=[([int(t) for t in p], m) for p, m in reqs])
+        proc = subprocess.run(
+            [sys.executable, "-c", CLIENT_PROCESS, str(ROOT / "src")],
+            input=json.dumps(spec), capture_output=True, text=True,
+            timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"client process: {proc.stderr[-2000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+    else:
+        clients = [TimedClient(srv) for _ in reqs]
+        with concurrent.futures.ThreadPoolExecutor(len(reqs)) as ex:
+            futs = [ex.submit(c.generate, p, max_new_tokens=m)
+                    for c, (p, m) in zip(clients, reqs)]
+            res = [dict(status=r.status, tokens=r.tokens, ttft_s=r.ttft_s,
+                        times=c.times)
+                   for c, r in zip(clients, (f.result(timeout=300)
+                                             for f in futs))]
+    wait_for(lambda: len(engine.done) == mark + len(reqs)
+             and not engine.has_work, "the streams' retirement")
+    d1 = len(engine.step_s["decode"])
+    if any(r["status"] != 200 or len(r["tokens"]) != m
+           for r, (_, m) in zip(res, reqs)):
+        raise AssertionError("an SSE stream came short")
+    served = {tuple(r.prompt): r for r in engine.done[mark:]}
+    delay, itl = [], []
+    for r, (p, _) in zip(res, reqs):
+        req, times = served[tuple(int(t) for t in p)], r["times"]
+        if [int(t) for t in req.output] != r["tokens"]:
+            raise AssertionError("SSE tokens differ from the engine's")
+        delay += [t - e for t, e in zip(times, req.token_times)]
+        itl += [b - a for a, b in zip(times, times[1:])]
+    if min(delay) < 0:
+        raise AssertionError(f"an event arrived {min(delay)} s before "
+                             f"its emit: the clocks differ")
+    reqs_served = list(served.values())
+    return dict(
+        clients="process" if remote else "threads",
+        ttft_p50_ms=quantile([r["ttft_s"] for r in res], 50) * 1e3,
+        itl_p50_ms=quantile(itl, 50) * 1e3,
+        engine_ttft_p50_ms=quantile([r.ttft_s for r in reqs_served],
+                                    50) * 1e3,
+        engine_itl_p50_ms=quantile([g for r in reqs_served
+                                    for g in r.itl_s], 50) * 1e3,
+        sse_delay_p50_ms=quantile(delay, 50) * 1e3,
+        sse_delay_p99_ms=quantile(delay, 99) * 1e3,
+        p50_decode_step_ms=quantile(engine.step_s["decode"][d0:d1],
+                                    50) * 1e3)
+
+
+def ingress_full(torch, build, cfg, params, reqs) -> collections.Counter:
+    """Full width, bf16: an in-process engine and an ingress engine,
+    both fresh, serve the same work in the same order, so their sink
+    pages share a history: two requests alone (tokens must be equal),
+    then 8 at once, in-process against 8 SSE clients (``ingress_burst``,
+    once from threads of this process and once from a process of their
+    own): TTFT and ITL p50, each token's SSE delay after its emit, and
+    the p50 decode step meanwhile. Then a client hangs up mid-stream
+    (cancelled within one engine step, ``check_integrity()``, every page
+    back), and ``reject`` answers 429 with ``Retry-After`` under
+    overload. Returns the ingress's launches."""
+    import concurrent.futures
+    from repro_torch.obs import Recorder, Tracer, quantile
+    from repro_torch.serve import IngressClient, IngressOptions, \
+        IngressServer
+    alone, eight = reqs[:2], reqs[:8]
+    inproc = obs_engine(cfg, params, Recorder(), preempt="recompute")
+    inproc.warmup()
+    want_alone = serve_alone(inproc, alone)
+    d0 = len(inproc.step_s["decode"])
+    handles = [inproc.submit(p, max_new_tokens=m) for p, m in eight]
+    inproc.run_until_idle()
+    row = dict(
+        arch=cfg.name, dtype=cfg.compute_dtype, streams=len(eight),
+        inproc_ttft_p50_ms=quantile([r.ttft_s for r in handles], 50) * 1e3,
+        inproc_itl_p50_ms=quantile([g for r in handles for g in r.itl_s],
+                                   50) * 1e3,
+        inproc_p50_decode_step_ms=quantile(inproc.step_s["decode"][d0:],
+                                           50) * 1e3)
+    del inproc, handles
+
+    engine = obs_engine(cfg, params, Recorder(tracer=Tracer()),
+                        preempt="recompute")
+    engine.warmup()
+    build.reset_launches()
+    srv = IngressServer(engine, options=IngressOptions(
+        admission_queue=8)).start()
+    try:
+        cli = IngressClient(srv.host, srv.port, timeout=300)
+        got_alone = [cli.generate(p, max_new_tokens=m).tokens
+                     for p, m in alone]
+        if got_alone != want_alone:
+            raise AssertionError("a request served alone through the "
+                                 "ingress gave other tokens than in-process")
+        # a stream ends at its last event, the engine retires it just
+        # after: wait for that before reading the engine
+        wait_for(lambda: len(engine.done) == len(alone)
+                 and not engine.has_work, "the alone requests' retirement")
+        row["alone_tokens_equal"] = sum(map(len, got_alone))
+        row["threads"] = ingress_burst(engine, srv, eight, remote=False)
+        row["process"] = ingress_burst(engine, srv, eight, remote=True)
+        # hang-up mid-stream
+        victim = TimedClient(srv).generate(reqs[8][0], max_new_tokens=64,
+                                           disconnect_after=3)
+        wait_for(lambda: engine.cancelled and not engine.has_work,
+                 "the disconnected request's cancel")
+        between = steps_between(engine, engine.cancelled[-1].rid)
+        engine.kv.check_integrity()
+        if between > 1 or len(victim.tokens) != 3 or \
+                engine.kv.free_pages != engine.kv.num_pages - 1:
+            raise AssertionError(f"disconnect: {between} steps before the "
+                                 f"cancel, {engine.kv.free_pages} free "
+                                 f"pages of {engine.kv.num_pages - 1}")
+    finally:
+        srv.stop(timeout=120)
+    srv = IngressServer(engine, options=IngressOptions(
+        admission_queue=1, shed_policy="reject")).start()
+    try:
+        cli = IngressClient(srv.host, srv.port, timeout=300)
+        with concurrent.futures.ThreadPoolExecutor(1) as ex:
+            blocker = ex.submit(cli.generate, reqs[9][0],
+                                max_new_tokens=64)
+            wait_for(lambda: srv._inflight >= 1, "the blocker's admission")
+            shed = cli.generate(reqs[10][0], max_new_tokens=4)
+            held = blocker.result(timeout=300)
+        if shed.status != 429 or shed.retry_after_s < 1 or \
+                len(held.tokens) != 64:
+            raise AssertionError(f"reject: status {shed.status}, "
+                                 f"Retry-After {shed.retry_after_s}")
+    finally:
+        srv.stop(timeout=120)
+    launches = collections.Counter(build.LAUNCHES)
+    check_replays(cfg, engine, "paged_decode_attention")
+    reg = engine.obs.registry.snapshot()
+    row.update(
+        disconnect_steps_to_cancel=between,
+        rejected=reg["repro_ingress_requests_total"]['outcome="rejected"'],
+        disconnects=reg["repro_ingress_disconnects_total"])
+    log("ingress " + json.dumps(row))
+    return launches
+
+
+def ingress_exact(torch, build) -> None:
+    """2 layers, fp32, capacity factor 8.0 (no token is dropped, so the
+    batch does not change a request's tokens): SSE tokens, sequential and
+    8 at once, equal the in-process engine's; under ``degrade`` a clamped
+    stream's tokens are a prefix of the request served alone."""
+    import concurrent.futures
+    from repro_torch.serve import IngressClient, IngressOptions, \
+        IngressServer
+    cfg = serve_config(num_layers=2, dtype="float32")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+    reqs = requests(cfg.vocab_size, 8, seed=0)
+    ref = obs_engine(cfg, None, preempt="recompute")
+    ref.warmup()
+    handles = [ref.submit(p, max_new_tokens=m) for p, m in reqs]
+    ref.run_until_idle()
+    want = [list(r.output) for r in handles]
+    engine = obs_engine(cfg, ref.params, preempt="recompute")
+    engine.warmup()
+    srv = IngressServer(engine).start()
+    try:
+        cli = IngressClient(srv.host, srv.port, timeout=300)
+        seq = [cli.generate(p, max_new_tokens=m).tokens for p, m in reqs]
+        with concurrent.futures.ThreadPoolExecutor(len(reqs)) as ex:
+            futs = [ex.submit(cli.generate, p, max_new_tokens=m)
+                    for p, m in reqs]
+            together = [f.result(timeout=300).tokens for f in futs]
+    finally:
+        srv.stop(timeout=120)
+    if seq != want or together != want:
+        raise AssertionError("fp32 SSE tokens differ from in-process")
+    srv = IngressServer(engine, options=IngressOptions(
+        admission_queue=1, shed_policy="degrade",
+        degrade_max_new=2)).start()
+    try:
+        cli = IngressClient(srv.host, srv.port, timeout=300)
+        with concurrent.futures.ThreadPoolExecutor(1) as ex:
+            blocker = ex.submit(cli.generate, reqs[1][0],
+                                max_new_tokens=reqs[1][1])
+            wait_for(lambda: srv._inflight >= 1, "the blocker's admission")
+            clamped = cli.generate(reqs[0][0], max_new_tokens=reqs[0][1])
+            blocker.result(timeout=300)
+    finally:
+        srv.stop(timeout=120)
+    if not clamped.degraded or clamped.tokens != want[0][:2]:
+        raise AssertionError(f"degrade: {clamped.tokens} is not a prefix "
+                             f"of {want[0][:4]}...")
+    log(f"ingress-exact moe-gpt3-s fp32 2 layers: {sum(map(len, want))} "
+        f"greedy tokens of {len(reqs)} SSE streams equal to in-process, "
+        f"sequential and {len(reqs)} at once; a degraded stream's "
+        f"{len(clamped.tokens)} tokens a prefix of its request alone")
+    engine.kv.check_integrity()
+
+
+def obs_phase(torch, build, params) -> collections.Counter:
+    """Phase 7 (moe-gpt3-s, full width, bf16, over phase 4's params):
+    the tracer off and on in turns, ``/metrics`` scraped mid-run, the
+    Poisson replay, the ingress; then the ingress's exact-token checks
+    at 2 layers in fp32. Returns the full-width runs' launches."""
+    cfg = serve_config()
+    reqs = requests(cfg.vocab_size, 16, seed=0)
+    _, launches = telemetry_pairs(torch, build, cfg, params, reqs)
+    launches += metrics_run(torch, build, cfg, params, reqs)
+    launches += replay_phase(build, cfg, params)
+    launches += ingress_full(torch, build, cfg, params, reqs)
+    torch.cuda.empty_cache()
+    ingress_exact(torch, build)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 13 and 15: training
 # ---------------------------------------------------------------------------
 
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
@@ -1948,7 +2535,7 @@ def card_vs_cpu(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 13: adaptive (n, strategy)
+# phase 14: adaptive (n, strategy)
 # ---------------------------------------------------------------------------
 
 ADAPTIVE_TRACE = (8, 4, 8, 2, 8, 4)     # batches of TRAIN_SEQ tokens
@@ -2441,7 +3028,8 @@ def main() -> int:
     params = engine.params
     del engine, handles
     torch.cuda.empty_cache()
-    capture_vs_eager(torch, build, cfg, reqs, 4, params,
+    # 2 pairs keep the whole script near half of its time limit
+    capture_vs_eager(torch, build, cfg, reqs, 2, params,
                      "paged_decode_attention", "moe-gpt3-s",
                      preempt="recompute", num_pages=65, adaptive=False)
     offload_launches = offload_phase(torch, build, params)
@@ -2455,18 +3043,22 @@ def main() -> int:
     # -- 6. cancel ----------------------------------------------------------
     log(f"phase 6 at {time.perf_counter() - t_start:.1f} s")
     cancel_launches = cancel_phase(torch, build, params)
+
+    # -- 7. telemetry, the Poisson replay and the ingress --------------------
+    log(f"phase 7 at {time.perf_counter() - t_start:.1f} s")
+    obs_launches = obs_phase(torch, build, params)
     del params
 
-    # -- 7. kernel vs gather ------------------------------------------------
-    log(f"phase 7 at {time.perf_counter() - t_start:.1f} s")
+    # -- 8. kernel vs gather ------------------------------------------------
+    log(f"phase 8 at {time.perf_counter() - t_start:.1f} s")
     gather_vs_kernel(torch, "moe-gpt3-s")
 
-    # -- 8. serve DeepSeek-V2-Lite ------------------------------------------
-    log(f"phase 8 at {time.perf_counter() - t_start:.1f} s")
+    # -- 9. serve DeepSeek-V2-Lite ------------------------------------------
+    log(f"phase 9 at {time.perf_counter() - t_start:.1f} s")
     deepseek_launches, params = deepseek_phase(torch, build, launcher)
 
-    # -- 9. prefix cache, DeepSeek-V2-Lite ------------------------------------
-    log(f"phase 9 at {time.perf_counter() - t_start:.1f} s")
+    # -- 10. prefix cache, DeepSeek-V2-Lite ----------------------------------
+    log(f"phase 10 at {time.perf_counter() - t_start:.1f} s")
     cfg = serve_config(arch=DEEPSEEK)
     prefix_launches += prefix_pairs(
         torch, build, cfg, params, chat_trace(cfg.vocab_size, 8, seed=12),
@@ -2475,36 +3067,36 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 10. kernel vs gather, DeepSeek-V2-Lite ------------------------------
-    log(f"phase 10 at {time.perf_counter() - t_start:.1f} s")
+    # -- 11. kernel vs gather, DeepSeek-V2-Lite ----------------------------
+    log(f"phase 11 at {time.perf_counter() - t_start:.1f} s")
     gather_vs_kernel(torch, DEEPSEEK)
 
-    # -- 11. prefix on vs off, exact ------------------------------------------
-    log(f"phase 11 at {time.perf_counter() - t_start:.1f} s")
+    # -- 12. prefix on vs off, exact ----------------------------------------
+    log(f"phase 12 at {time.perf_counter() - t_start:.1f} s")
     for arch, n in (("moe-gpt3-s", 16), (DEEPSEEK, 8)):
         prefix_exact(torch, build, arch, n)
     torch.cuda.empty_cache()
 
-    # -- 12. train ----------------------------------------------------------
-    log(f"phase 12 at {time.perf_counter() - t_start:.1f} s")
+    # -- 13. train ----------------------------------------------------------
+    log(f"phase 13 at {time.perf_counter() - t_start:.1f} s")
     train_rows, train_launches = train_phase(torch, build)
 
-    # -- 13. adaptive (n, strategy) ----------------------------------------
-    log(f"phase 13 at {time.perf_counter() - t_start:.1f} s")
+    # -- 14. adaptive (n, strategy) ----------------------------------------
+    log(f"phase 14 at {time.perf_counter() - t_start:.1f} s")
     adaptive_launches = adaptive_train_phase(torch, build)
     strategy_memory(torch)
     eta_sigma(torch)
     adaptive_launches += adaptive_serve_phase(torch, build)
 
-    # -- 14. card vs CPU ----------------------------------------------------
-    log(f"phase 14 at {time.perf_counter() - t_start:.1f} s")
+    # -- 15. card vs CPU ----------------------------------------------------
+    log(f"phase 15 at {time.perf_counter() - t_start:.1f} s")
     card_vs_cpu(torch)
 
-    # -- 15. kernels line ---------------------------------------------------
-    log(f"phase 15 at {time.perf_counter() - t_start:.1f} s")
+    # -- 16. kernels line ---------------------------------------------------
+    log(f"phase 16 at {time.perf_counter() - t_start:.1f} s")
     main_launches = (serve_launches + offload_launches + prefix_launches
-                     + cancel_launches + deepseek_launches + train_launches
-                     + adaptive_launches)
+                     + cancel_launches + obs_launches + deepseek_launches
+                     + train_launches + adaptive_launches)
     def head(kernel, case="train", dtype="bfloat16"):
         return next(r for r in kernel_rows if r["kernel"] == kernel
                     and r["case"] == case and r["dtype"] == dtype
@@ -2551,7 +3143,7 @@ def main() -> int:
               "flash_attention/kernel.py:67", head("flash_attention")),
     ]}), flush=True)
 
-    # -- 16. result ---------------------------------------------------------
+    # -- 17. result ---------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

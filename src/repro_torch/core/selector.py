@@ -11,11 +11,13 @@ Resolves the two runtime knobs of MPipeMoE before a step runs:
 Returns an updated ArchConfig; the training loop builds a new step when
 the resolved (n, strategy) changes (a cache keyed by them).
 
-:class:`Resolver` keeps plain integer counts (``search_calls``,
-``candidates_measured``, ``retunes``) and the seconds its resolutions
-took (``retune_s``) where the JAX package's feeds its telemetry
-registry; the port's telemetry comes with ROADMAP.md's 'repro.obs and
-the ingress' item.
+:class:`Resolver` records into a ``repro_torch.obs.Recorder``, as the
+JAX package's does: the ``repro_retunes_total``,
+``repro_retune_seconds`` and ``repro_candidates_measured_total``
+families, a ``resolver.resolve`` span (args ``tokens``, ``refresh``,
+``n``, ``strategy``) and a ``candidate`` instant for each measured
+timing. ``retunes``, ``retune_s`` and ``candidates_measured`` read the
+registry back (a registry shared by several resolvers sums them).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from repro_torch.core.perf_model import MoEWorkload, select_strategy
 from repro_torch.core.pipeline_sim import simulate
 from repro_torch.core.strategies import host_offload_supported
 from repro_torch.core.types import HardwareSpec, Strategy
+from repro_torch.obs import PID_RESOLVER, Recorder
 
 
 def moe_workload(cfg: ArchConfig, local_tokens: int, ep_size: int,
@@ -118,7 +121,8 @@ class Resolver:
                  measure_fn: Optional[Callable[[int, int, Strategy], float]]
                  = None, dp: int = 16,
                  allow_offload: Optional[bool] = None,
-                 candidates: Optional[Sequence[int]] = None):
+                 candidates: Optional[Sequence[int]] = None,
+                 obs: Optional[Recorder] = None):
         self.cfg = cfg
         self.ep_size = ep_size
         self.hw = hw
@@ -127,9 +131,33 @@ class Resolver:
         self.allow_offload = allow_offload
         self.candidates = tuple(candidates) if candidates else None
         self._searchers: Dict[str, GranularitySearcher] = {}
-        self.candidates_measured = 0     # measure_fn calls
-        self.retunes = 0                 # resolve() calls
-        self.retune_s = 0.0              # their wall seconds, summed
+        # serve and train controllers thread the same Recorder through,
+        # so resolver retunes land on one surface
+        self.obs = obs if obs is not None else Recorder()
+        reg = self.obs.registry
+        self._m_retunes = reg.counter(
+            "repro_retunes_total", "resolver (n, strategy) resolutions")
+        self._m_retune_s = reg.histogram(
+            "repro_retune_seconds", "wall time per resolver resolution")
+        self._m_candidates = reg.counter(
+            "repro_candidates_measured_total",
+            "candidate (n, strategy) timings measured")
+        self.obs.tracer.thread_name(PID_RESOLVER, 1, "retune")
+
+    @property
+    def candidates_measured(self) -> int:
+        """``measure_fn`` calls (``repro_candidates_measured_total``)."""
+        return int(self._m_candidates.value)
+
+    @property
+    def retunes(self) -> int:
+        """``resolve()`` calls (``repro_retunes_total``)."""
+        return int(self._m_retunes.value)
+
+    @property
+    def retune_s(self) -> float:
+        """Their wall seconds, summed (``repro_retune_seconds``)."""
+        return self._m_retune_s.sum
 
     def searcher_for(self, strategy: str) -> GranularitySearcher:
         s = self._searchers.get(strategy)
@@ -139,7 +167,12 @@ class Resolver:
 
                 def fn(b: int, n: int, _s=sv) -> float:
                     dt = self.measure_fn(b, n, _s)
-                    self.candidates_measured += 1
+                    # measured candidate timing: Algorithm 1's probe
+                    self._m_candidates.inc()
+                    self.obs.tracer.instant(
+                        "candidate", pid=PID_RESOLVER,
+                        args={"b": b, "n": n, "strategy": _s.value,
+                              "seconds": dt})
                     return dt
 
                 s = GranularitySearcher(
@@ -168,8 +201,15 @@ class Resolver:
             return s
 
         t0 = time.perf_counter()
-        out = _resolve_with(self.cfg, local_tokens, self.ep_size, self.hw,
-                            self.dp, self.allow_offload, searcher_for)
-        self.retunes += 1
-        self.retune_s += time.perf_counter() - t0
+        with self.obs.tracer.span(
+                "resolver.resolve", pid=PID_RESOLVER,
+                args={"tokens": local_tokens, "refresh": refresh}) as sp:
+            out = _resolve_with(self.cfg, local_tokens, self.ep_size,
+                                self.hw, self.dp, self.allow_offload,
+                                searcher_for)
+            if out.moe is not None:
+                sp["n"] = out.moe.num_partitions
+                sp["strategy"] = out.moe.memory_reuse_strategy
+        self._m_retunes.inc()
+        self._m_retune_s.observe(time.perf_counter() - t0)
         return out

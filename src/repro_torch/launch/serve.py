@@ -23,15 +23,33 @@ Prefill ``(n, strategy)`` is resolved per bucket (``--hw``,
 fixes n. It runs on the card; ``--device cpu``
 runs it on the CPU. ``--engine`` is accepted so the JAX launcher's
 command line runs unchanged; the engine is the only serving mode
-ported. The Poisson trace replay, the HTTP ingress and ``/metrics`` of
-the JAX launcher come with ROADMAP.md's later slices.
+ported.
+
+Three ways to feed the engine, as the JAX launcher has them:
+
+* the seeded batch above (the default);
+* ``--rate R [--time-scale S]``: a Poisson replay through
+  ``serve.trace.run_poisson`` of ``--requests`` requests at ``R`` req/s,
+  prompts of 4 up to the ``hi`` of ``--prompt-len`` tokens and 2 up to
+  the ``hi`` of ``--gen`` new tokens (the JAX ``engine_loop``'s draw),
+  then the JAX launcher's req/s, tok/s, latency, TTFT and ITL lines;
+* ``--http-port P``: the HTTP/SSE ingress (``serve.ingress``) until ^C,
+  shedding past ``--admission-queue`` by ``--shed-policy``.
+
+In every mode ``--metrics-port`` serves live Prometheus ``/metrics``
+(started after ``warmup()``, so the capture is done before the exporter
+thread runs), ``--trace-out`` records spans and writes a
+Perfetto-loadable trace at the end, and ``--temperature`` / ``--top-k``
+/ ``--top-p`` / ``--sample-seed`` / ``--eos`` set every request's
+sampling and stop.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
-from typing import Dict, List, Optional, Sequence, Tuple
+import threading
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -111,28 +129,50 @@ def build_parser() -> argparse.ArgumentParser:
                     help="seeds the weights and the prompts")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    ap.add_argument("--rate", type=float, default=None,
+                    help="replay a Poisson trace of --requests requests "
+                         "at this arrival rate (req/s) instead of the "
+                         "seeded batch")
+    ap.add_argument("--time-scale", type=float, default=1.0,
+                    help="with --rate: arrival time multiplier (0 = all "
+                         "at once)")
+    ap.add_argument("--eos", type=int, default=-1,
+                    help="EOS token id for early exit (-1 = disabled)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k filter (0 = disabled)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus (top-p) filter (1 = disabled)")
+    ap.add_argument("--sample-seed", type=int, default=0,
+                    help="per-request sampling seed")
+    ap.add_argument("--metrics-port", type=int, default=-1,
+                    help="serve live Prometheus /metrics (and /healthz) "
+                         "on this port for the duration of the run (0 = "
+                         "pick a free port, printed at startup; -1 = "
+                         "disabled)")
+    ap.add_argument("--trace-out", default="",
+                    help="record spans and write a Perfetto-loadable "
+                         "Chrome trace-event JSON here at shutdown ('' = "
+                         "tracing off)")
+    ap.add_argument("--http-port", type=int, default=-1,
+                    help="serve the HTTP/SSE ingress on this port instead "
+                         "of a batch or a replay: POST /generate streams "
+                         "one SSE event per generated token, client "
+                         "disconnects cancel their request (0 = pick a "
+                         "free port, printed at startup; -1 = disabled)")
+    ap.add_argument("--shed-policy", default="reject",
+                    choices=["reject", "degrade"],
+                    help="ingress: behaviour past --admission-queue: "
+                         "'reject' answers 429 with Retry-After, "
+                         "'degrade' admits with max_new_tokens clamped")
+    ap.add_argument("--admission-queue", type=int, default=8,
+                    help="ingress: bound on requests accepted but not "
+                         "yet finished before load shedding starts")
     return ap
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Dict:
-    args = build_parser().parse_args(argv)
-    from repro_torch.serve import Engine, EngineOptions
-
-    cfg = configure(args)
-    hw = resolve_hw(args.hw)
-    print(f"hw spec: {hw.name}", flush=True)
-    engine = Engine(cfg, options=EngineOptions(
-        device=args.device, hw=hw, measure=args.measure,
-        preempt=args.preempt, num_pages=args.num_pages,
-        prefix_cache=args.prefix_cache,
-        adaptive=args.num_partitions is None), seed=args.seed)
-    print(f"warmup: {engine.warmup()} programs built", flush=True)
-    for prompt, gen in synthetic_requests(
-            args.requests, cfg.vocab_size, _range(args.prompt_len),
-            _range(args.gen), args.seed):
-        engine.submit(prompt, max_new_tokens=gen)
-    engine.run_until_idle()
-    s = engine.stats()
+def _print_stats(s: Dict, engine) -> None:
     print(f"served {s['requests_done']} requests "
           f"({s['requests_cancelled']} cancelled: "
           f"{s['cancelled_by_stage']}), "
@@ -151,6 +191,129 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
               f"{s['prefix_evicted_pages']} pages evicted")
     for bucket, (n, strat) in sorted(engine.adaptive.resolutions.items()):
         print(f"  bucket {bucket:4d} -> n={n} strategy={strat}")
+
+
+def _print_replay(s: Dict, dt: float) -> None:
+    """The JAX launcher's replay summary lines."""
+    print(f"engine: {s['requests_done']} requests, "
+          f"{s['tokens_generated']} tokens in {dt:.2f}s "
+          f"({s['requests_done'] / dt:.2f} req/s, "
+          f"{s['tokens_generated'] / dt:.1f} tok/s)")
+    print(f"latency p50={s['p50_latency_s'] * 1e3:.0f}ms "
+          f"p99={s['p99_latency_s'] * 1e3:.0f}ms | "
+          f"TTFT p50={s['p50_ttft_s'] * 1e3:.0f}ms | "
+          f"ITL p50={s['p50_itl_s'] * 1e3:.1f}ms "
+          f"p99={s['p99_itl_s'] * 1e3:.1f}ms")
+    print(f"KV pool {s['cache_bytes'] / 2**20:.2f}MiB, "
+          f"peak used {s['peak_kv_used_bytes'] / 2**20:.2f}MiB | "
+          f"{s['engine_steps']} steps, "
+          f"{s['prefill_builds']} prefill builds")
+
+
+def _ingress(engine, args, stop: Optional[threading.Event],
+             on_ingress: Optional[Callable]) -> None:
+    """Serve HTTP/SSE clients until ^C (or ``stop`` is set)."""
+    import time
+
+    from repro_torch.serve import IngressOptions, IngressServer
+    ingress = IngressServer(engine, options=IngressOptions(
+        port=args.http_port, shed_policy=args.shed_policy,
+        admission_queue=args.admission_queue)).start()
+    print(f"ingress: {ingress.url} - POST /generate streams SSE "
+          f"(shed={args.shed_policy}, "
+          f"admission_queue={args.admission_queue}); ^C to stop",
+          flush=True)
+    try:
+        if on_ingress is not None:
+            on_ingress(ingress)
+        while stop is None or not stop.is_set():
+            time.sleep(0.1)
+    except KeyboardInterrupt:
+        print("draining...")
+    finally:
+        ingress.stop()
+
+
+def main(argv: Optional[Sequence[str]] = None, *,
+         stop: Optional[threading.Event] = None,
+         on_ingress: Optional[Callable] = None) -> Dict:
+    """Runs the launcher; returns ``stats()`` (with ``arch``, and
+    ``wall_s`` for a replay). With ``--http-port``, ``stop`` (an event)
+    ends the serving loop as ^C does, and ``on_ingress(server)`` runs
+    once it listens."""
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.http_port < 0 and (args.shed_policy != "reject"
+                               or args.admission_queue != 8):
+        ap.error("--shed-policy / --admission-queue configure the HTTP "
+                 "ingress; add --http-port")
+    if args.http_port >= 0 and args.rate is not None:
+        ap.error("--http-port serves live clients; --rate replays a "
+                 "trace: pick one")
+    from repro_torch.obs import MetricsServer, Recorder, Tracer
+    from repro_torch.serve import (Engine, EngineOptions, SamplingParams,
+                                   run_poisson)
+
+    cfg = configure(args)
+    hw = resolve_hw(args.hw)
+    print(f"hw spec: {hw.name}", flush=True)
+    obs = Recorder(tracer=Tracer()) if args.trace_out else Recorder()
+    opts = EngineOptions(
+        device=args.device, hw=hw, measure=args.measure,
+        preempt=args.preempt, num_pages=args.num_pages,
+        prefix_cache=args.prefix_cache,
+        adaptive=args.num_partitions is None, obs=obs)
+    sampling = None
+    if args.temperature > 0:
+        sampling = SamplingParams(temperature=args.temperature,
+                                  top_k=args.top_k, top_p=args.top_p,
+                                  seed=args.sample_seed)
+    eos = args.eos if args.eos >= 0 else None
+    server = None
+
+    def on_engine(engine) -> None:
+        # after warmup: the exporter thread starts once the decode step
+        # is captured; scrape-time refresh through the engine's gauges
+        nonlocal server
+        if args.metrics_port >= 0:
+            server = MetricsServer(obs.registry, port=args.metrics_port,
+                                   refresh=engine._refresh_gauges).start()
+            print(f"metrics: {server.url}/metrics", flush=True)
+
+    dt = None
+    try:
+        if args.rate is not None:
+            engine, dt = run_poisson(
+                cfg, opts, requests=args.requests, rate=args.rate,
+                prompt_max=_range(args.prompt_len)[1],
+                gen_max=_range(args.gen)[1], seed=args.seed, eos_id=eos,
+                time_scale=args.time_scale, sampling=sampling,
+                on_engine=on_engine, weights_seed=args.seed)
+        else:
+            engine = Engine(cfg, options=opts, seed=args.seed)
+            print(f"warmup: {engine.warmup()} programs built", flush=True)
+            on_engine(engine)
+            if args.http_port >= 0:
+                _ingress(engine, args, stop, on_ingress)
+            else:
+                for prompt, gen in synthetic_requests(
+                        args.requests, cfg.vocab_size,
+                        _range(args.prompt_len), _range(args.gen),
+                        args.seed):
+                    engine.submit(prompt, max_new_tokens=gen, eos_id=eos,
+                                  sampling=sampling)
+                engine.run_until_idle()
+    finally:
+        if server is not None:
+            server.stop()
+    if args.trace_out:
+        obs.tracer.write(args.trace_out)
+        print(f"trace: {args.trace_out} (load in https://ui.perfetto.dev)")
+    s = engine.stats()
+    if dt is not None:
+        _print_replay(s, dt)
+        s["wall_s"] = dt
+    _print_stats(s, engine)
     s["arch"] = cfg.name
     print(json.dumps(s, sort_keys=True))
     return s

@@ -14,7 +14,11 @@ for ``--batch`` x ``--seq`` tokens on the ``--hw`` spec (Algorithm 1
 with the pipeline simulator, Eq. 10) and printed at start; with
 ``--adaptive [--retune-every K]`` the online controller resolves them
 while training instead, and the final ``n``/``strategy`` are printed at
-the end.
+the end. ``--metrics-port`` serves live Prometheus ``/metrics`` (the
+``repro_train_step``, ``repro_train_loss`` and
+``repro_train_step_seconds`` families and the controller's resolver
+families) and ``--trace-out`` writes the resolver's retune spans as a
+Perfetto-loadable trace at exit, as in the JAX launcher.
 """
 from __future__ import annotations
 
@@ -69,6 +73,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--retune-every", type=int, default=0,
                     help="with --adaptive: also re-resolve every K steps "
                          "(0 = only on batch-shape change)")
+    ap.add_argument("--metrics-port", type=int, default=-1,
+                    help="serve live Prometheus /metrics (controller "
+                         "retunes + training heartbeat gauges) on this "
+                         "port (0 = free port; -1 = disabled)")
+    ap.add_argument("--trace-out", default="",
+                    help="write resolver retune spans as a "
+                         "Perfetto-loadable trace here at exit "
+                         "('' = off)")
     return ap
 
 
@@ -77,10 +89,19 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     cfg = configure(args)
+    # one telemetry surface for training: resolver retune spans and
+    # counters land in the registry the heartbeat gauges use
+    from repro_torch.obs import MetricsServer, Recorder, Tracer
+    obs = Recorder(tracer=Tracer()) if args.trace_out else Recorder()
+    server = None
+    if args.metrics_port >= 0:
+        server = MetricsServer(obs.registry,
+                               port=args.metrics_port).start()
+        print(f"metrics: {server.url}/metrics", flush=True)
     adaptive = False
     if cfg.moe is not None and args.adaptive:
         adaptive = AdaptiveOptions(retune_every=args.retune_every,
-                                   hw=resolve_hw(args.hw))
+                                   hw=resolve_hw(args.hw), obs=obs)
         print("MPipeMoE: online adaptive (n, strategy) "
               f"(retune_every={args.retune_every})", flush=True)
     elif cfg.moe is not None:
@@ -90,7 +111,15 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     opts = TrainOptions(lr=args.lr, warmup=min(20, args.steps // 5),
                         total_steps=args.steps)
 
+    g_step = obs.registry.gauge("repro_train_step", "last training step")
+    g_loss = obs.registry.gauge("repro_train_loss", "last training loss")
+    h_step = obs.registry.histogram("repro_train_step_seconds",
+                                    "training step wall time")
+
     def heartbeat(step, metrics):
+        g_step.set(step)
+        g_loss.set(float(metrics["loss"]))
+        h_step.observe(float(metrics["step_time_s"]))
         if step % 10 == 0:
             extra = (f" n={metrics['n']} strat={metrics['strategy']}"
                      if "n" in metrics else "")
@@ -98,9 +127,16 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
                   f"t={metrics['step_time_s'] * 1e3:.0f}ms{extra}",
                   flush=True)
 
-    _, hist = train(cfg, steps=args.steps, batch_source=ds, opts=opts,
-                    heartbeat=heartbeat, adaptive=adaptive,
-                    device=args.device)
+    try:
+        _, hist = train(cfg, steps=args.steps, batch_source=ds, opts=opts,
+                        heartbeat=heartbeat, adaptive=adaptive,
+                        device=args.device)
+    finally:
+        if server is not None:
+            server.stop()
+        if args.trace_out:
+            obs.tracer.write(args.trace_out)
+            print(f"trace: {args.trace_out}")
     print(f"final loss {hist[-1]['loss']:.4f} at step {hist[-1]['step']}")
     if "n" in hist[-1]:                   # controller engaged (MoE arch)
         print(f"adaptive: n={hist[-1]['n']} "

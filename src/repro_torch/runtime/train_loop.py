@@ -36,6 +36,7 @@ from repro_torch.core.types import GPU_H100, HardwareSpec, Strategy
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.models.module import leaves
+from repro_torch.obs import Recorder
 from repro_torch.optim import get_optimizer, lr_schedule
 
 log = logging.getLogger("repro_torch.runtime")
@@ -172,6 +173,9 @@ class AdaptiveOptions:
     allow_offload: Optional[bool] = None
     candidates: Optional[Sequence[int]] = None
     cache_size: int = 32             # LRU bound on kept step functions
+    obs: Optional[Recorder] = None   # telemetry recorder shared with
+                                     # the resolver (None = private
+                                     # metrics-only recorder)
 
 
 StepParts = Tuple[Callable, Callable]     # (grads_of, update)
@@ -210,11 +214,14 @@ class AdaptiveController:
                                  f"simulate, not {mode!r}")
             if mode == "wallclock":
                 measure_fn = self._wallclock_measure
+        self.obs = (self.aopts.obs if self.aopts.obs is not None
+                    else Recorder())
         self.resolver = Resolver(cfg, ep_size=self.aopts.ep_size,
                                  hw=self.aopts.hw, measure_fn=measure_fn,
                                  dp=self.aopts.dp,
                                  allow_offload=self.aopts.allow_offload,
-                                 candidates=self.aopts.candidates)
+                                 candidates=self.aopts.candidates,
+                                 obs=self.obs)
         self._step_cache: Dict[Tuple, StepParts] = {}
         self._probe = None               # (state, batch) for wallclock
         self._last_shape = None

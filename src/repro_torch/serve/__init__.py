@@ -22,15 +22,29 @@
                    per-request streams; host-side stop matching
 ``adaptive.py``    prefill bucketing and per-bucket adaptive
                    (n, strategy): :class:`PrefillBucketAdaptive`
+``trace.py``       :class:`TraceEntry`, ``poisson_trace`` (bit-equal to
+                   the JAX package's), ``replay``, ``run_poisson``
+``ingress.py``     :class:`IngressServer` (HTTP/SSE over an engine
+                   thread; disconnect -> ``Engine.cancel``; reject or
+                   degrade shedding), :class:`IngressClient`
+
+Telemetry (``EngineOptions.obs``) lives in ``repro_torch.obs``.
 """
 from repro_torch.serve.engine import (PREFIX_CACHE_MODES, Engine,
                                       EngineOptions)
+from repro_torch.serve.ingress import (SHED_POLICIES, IngressClient,
+                                       IngressOptions, IngressServer,
+                                       StreamResult)
 from repro_torch.serve.paged_kv import PagedKVCache
 from repro_torch.serve.request import Request, RequestState
 from repro_torch.serve.sampling import SamplingParams, sample_tokens
 from repro_torch.serve.scheduler import Scheduler
 from repro_torch.serve.state_cache import StateCache
+from repro_torch.serve.trace import (TraceEntry, poisson_trace, replay,
+                                     run_poisson)
 
-__all__ = ["PREFIX_CACHE_MODES", "Engine", "EngineOptions", "PagedKVCache",
-           "Request", "RequestState", "SamplingParams", "Scheduler",
-           "StateCache", "sample_tokens"]
+__all__ = ["PREFIX_CACHE_MODES", "SHED_POLICIES", "Engine", "EngineOptions",
+           "IngressClient", "IngressOptions", "IngressServer",
+           "PagedKVCache", "Request", "RequestState", "SamplingParams",
+           "Scheduler", "StateCache", "StreamResult", "TraceEntry",
+           "poisson_trace", "replay", "run_poisson", "sample_tokens"]

@@ -26,6 +26,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.pipeline_sim import simulate
 from repro_torch.core.selector import Resolver, moe_workload
 from repro_torch.core.types import GPU_H100, HardwareSpec, Strategy
+from repro_torch.obs import Recorder
 
 log = logging.getLogger("repro_torch.serve")
 
@@ -48,7 +49,8 @@ class PrefillBucketAdaptive:
                  ep_size: int = 1, dp: int = 1, min_bucket: int = 8,
                  max_bucket: int = 512,
                  measure_fn: Optional[Callable[[int, int, Strategy], float]]
-                 = None, shards: int = 1):
+                 = None, shards: int = 1,
+                 obs: Optional[Recorder] = None):
         assert min_bucket > 0 and max_bucket >= min_bucket
         self.cfg = cfg
         self.min_bucket = min_bucket
@@ -63,7 +65,7 @@ class PrefillBucketAdaptive:
                                  dp=dp)
                 return simulate(w, hw, n, strategy)
         self.resolver = (Resolver(cfg, ep_size=ep_size, hw=hw,
-                                  measure_fn=measure_fn, dp=dp)
+                                  measure_fn=measure_fn, dp=dp, obs=obs)
                          if cfg.moe is not None else None)
         # bucket -> (n, strategy); insertion-ordered for reporting
         self.resolutions: Dict[int, Tuple[int, str]] = {}

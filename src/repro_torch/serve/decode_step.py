@@ -18,6 +18,8 @@ buffers' contents. A failed capture or replay raises; nothing falls
 back to the eager step. On the CPU, or with ``graph=False``, every call
 runs the step eagerly over the same buffers.
 
+``on_capture`` (the engine's telemetry hook) runs after each capture.
+
 Sampling stays outside the graph (its per-request generators live on
 the host): the caller reads the returned logits before the next call,
 which overwrites them.
@@ -30,7 +32,7 @@ of one step (``build.recording``) and each replay adds them
 from __future__ import annotations
 
 import collections
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -45,7 +47,8 @@ __all__ = ["DecodeStep"]
 
 class DecodeStep:
     def __init__(self, params, kv: StateCache, cfg: ArchConfig, *,
-                 attn_kernel: str, graph: bool = True):
+                 attn_kernel: str, graph: bool = True,
+                 on_capture: Optional[Callable[[], None]] = None):
         self.params, self.kv, self.cfg = params, kv, cfg
         self.attn_kernel = attn_kernel
         self.tokens = StaticInput((kv.max_slots, 1), torch.int64, kv.device)
@@ -56,6 +59,7 @@ class DecodeStep:
         self.launches: collections.Counter = collections.Counter()
         self.captures = 0
         self.replays = 0
+        self.on_capture = on_capture     # called after each capture
 
     def __call__(self, tokens: np.ndarray, active: np.ndarray, *,
                  sink_only: bool = False) -> torch.Tensor:
@@ -99,4 +103,6 @@ class DecodeStep:
         main.wait_stream(side)
         self.graph, self.logits, self.launches = graph, static, recorded
         self.captures += 1
+        if self.on_capture is not None:
+            self.on_capture()
         return logits

@@ -61,17 +61,41 @@ decode, preempted), releases its slot, pages or host pages, and calls
 its ``on_done`` hook; ``submit`` takes ``on_token`` / ``on_done``.
 Cancelled requests are kept apart from ``done``.
 
+Telemetry (``EngineOptions.obs``, a ``repro_torch.obs.Recorder``;
+``None`` = a metrics-only registry and the no-op tracer): the JAX
+engine's metric families and span taxonomy. The registry is always
+real: ``stats()`` reads the queue, slot and free-unit gauges back from
+it, and the ``/metrics`` exporter refreshes them through
+``_refresh_gauges``, which reads host-side counts only (no CUDA call, so
+a scrape never syncs the card mid-step nor breaks a capture). Spans and
+counters are host events: telemetry on or off adds no kernel, CUDA event
+or synchronize, and the captured step records the same launches. Two
+families keep the JAX names for the port's counterparts of a trace and
+a compile: ``repro_jit_traces_total{body="decode"}`` counts decode-graph
+captures (``DecodeStep.captures``: 0 on the CPU, 1 on the card) and
+``{body="prefill"}`` with ``repro_prefill_compiles_total`` the prefill
+step functions built (``prefill_builds``); a ``jit.trace`` instant marks
+each.
+
+Threads: grad mode and the current CUDA stream are per thread in
+PyTorch. ``step()`` and ``warmup()`` run under ``torch.no_grad()`` and,
+on the card, on the stream current when the engine was built, so a
+thread other than the one that built it (the ingress's engine thread)
+launches on the stream the decode step was captured against and the
+router's per-stream state was set up on. Only one thread may drive an
+engine.
+
 Options of the JAX engine whose feature is not ported yet raise
 ``NotImplementedError`` naming the ROADMAP.md slice that brings it;
 none is accepted and then ignored.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import math
 import time
 import weakref
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,6 +108,7 @@ from repro_torch.device import dtype_of, resolve_device
 from repro_torch.models import lm
 from repro_torch.models.layers.attention import ATTN_KERNELS as _KERNELS
 from repro_torch.models.module import leaves
+from repro_torch.obs import PID_ENGINE, PID_REQUESTS, Recorder, quantile
 from repro_torch.serve.adaptive import PrefillBucketAdaptive, force_adaptive
 from repro_torch.serve.decode_step import DecodeStep
 from repro_torch.serve.paged_kv import PagedKVCache
@@ -96,15 +121,6 @@ __all__ = ["Engine", "EngineOptions", "quantile"]
 PREEMPT_POLICIES = ("auto", "recompute", "offload", "never")
 PREFIX_CACHE_MODES = ("on", "off")
 ATTN_KERNELS = ("auto",) + _KERNELS
-
-
-def quantile(xs: Sequence[float], p: float) -> float:
-    """Nearest-rank p-th percentile (``p`` in [0, 100]); 0.0 when empty."""
-    if not xs:
-        return 0.0
-    s = sorted(xs)
-    rank = max(1, math.ceil(p / 100.0 * len(s)))
-    return float(s[min(rank, len(s)) - 1])
 
 
 @dataclasses.dataclass
@@ -132,6 +148,10 @@ class EngineOptions:
     storm_every: int = 0               # N > 0: preempt a victim every N
                                        # steps (preemption-storm tests)
     device: Optional[str] = None       # None = cuda (raises without CUDA)
+    obs: Optional[Recorder] = None     # telemetry: None = metrics-only
+                                       # registry + no-op tracer; pass
+                                       # Recorder(tracer=Tracer()) to
+                                       # record Perfetto spans
     # not ported yet: raises NotImplementedError when set
     devices: int = 0
 
@@ -161,6 +181,12 @@ class Engine:
         self.opts = opts = options or EngineOptions()
         opts.check()
         self.device = resolve_device(opts.device)
+        # the registry is always real (stats() reads it; /metrics and
+        # stats() agree by construction); only the tracer is optional
+        self.obs = opts.obs if opts.obs is not None else Recorder()
+        # the stream every step launches on, whichever thread drives it
+        self._stream = (torch.cuda.current_stream(self.device)
+                        if self.device.type == "cuda" else None)
         self.attn_kernel = opts.attn_kernel
         if self.attn_kernel == "auto":
             self.attn_kernel = ("kernel" if self.device.type == "cuda"
@@ -182,8 +208,10 @@ class Engine:
             max_pages_per_seq=opts.max_pages_per_seq,
             dtype=dtype_of(cfg.compute_dtype),
             device=self.device, prefix_cache=(opts.prefix_cache == "on"))
+        self._init_metrics()
         self.scheduler = Scheduler(self.kv, chunk=opts.chunk,
-                                   full_reserve=(opts.preempt == "never"))
+                                   full_reserve=(opts.preempt == "never"),
+                                   obs=self.obs)
         measure_fn = opts.measure_fn
         mode = opts.measure
         if mode == "auto":
@@ -200,12 +228,18 @@ class Engine:
             cfg, hw=opts.hw, ep_size=opts.ep_size, dp=opts.dp,
             min_bucket=min(opts.min_bucket, opts.chunk),
             max_bucket=opts.chunk, measure_fn=measure_fn,
-            shards=opts.ep_size)
+            shards=opts.ep_size, obs=self.obs)
         self._prefill_fns: Dict[Tuple, Callable] = {}
         self.prefill_builds = 0
+        jit, tracer = self._m_jit, self.obs.tracer     # not self: no cycle
+
+        def on_capture() -> None:
+            jit.labels(body="decode").inc()
+            tracer.instant("jit.trace", args={"body": "decode"})
         self._decode = DecodeStep(self.params, self.kv, cfg,
                                   attn_kernel=self.attn_kernel,
-                                  graph=opts.decode_graph)
+                                  graph=opts.decode_graph,
+                                  on_capture=on_capture)
         # forward FLOPs a token of the active parameters, for the
         # offload-vs-recompute preemption cost
         self._flops_per_token = 2.0 * lm.count_params(cfg, active_only=True)
@@ -220,14 +254,80 @@ class Engine:
         # one entry per preemption: the victim, the mode applied and,
         # under "auto" with offload allowed, the two costs compared
         self.preempt_log: List[Dict[str, Any]] = []
-        self.prefill_tokens = 0
         self.decode_tokens = 0
         self.step_s: Dict[str, List[float]] = {"prefill": [], "decode": []}
         self.done: List[Request] = []
         # cancelled requests are kept apart from ``done``: their output is
         # cut short (often empty), so they would skew the latency figures
         self.cancelled: List[Request] = []
-        self.cancelled_by_stage: Dict[str, int] = {}
+
+    # -- telemetry -------------------------------------------------------
+    def _init_metrics(self) -> None:
+        """Register this engine's metric families, the JAX engine's
+        (idempotent: a registry shared by several engines merges
+        families)."""
+        reg = self.obs.registry
+        self._m_steps = reg.counter(
+            "repro_engine_steps_total", "engine host steps", ["kind"])
+        self._m_done = reg.counter(
+            "repro_requests_done_total", "requests retired")
+        self._m_tokens = reg.counter(
+            "repro_tokens_generated_total", "tokens emitted to requests")
+        self._m_prefill_tokens = reg.counter(
+            "repro_prefill_tokens_total", "prompt tokens prefilled")
+        self._m_preempts = reg.counter(
+            "repro_preempts_total", "preemptions by mode", ["mode"])
+        self._m_cancels = reg.counter(
+            "repro_cancels_total",
+            "cancelled requests by lifecycle stage", ["stage"])
+        self._m_jit = reg.counter(
+            "repro_jit_traces_total",
+            "step programs built: decode-graph captures (body=decode), "
+            "prefill step functions (body=prefill)", ["body"])
+        self._m_compiles = reg.counter(
+            "repro_prefill_compiles_total", "prefill step functions built")
+        self._m_step_s = reg.histogram(
+            "repro_step_seconds", "host wall time per engine step",
+            ["kind"])
+        self._m_lat = reg.histogram(
+            "repro_latency_seconds", "request latency (submit to done)")
+        self._m_ttft = reg.histogram(
+            "repro_ttft_seconds", "time to first token")
+        self._m_itl = reg.histogram(
+            "repro_itl_seconds", "inter-token latency")
+        # point-in-time gauges, filled by _refresh_gauges on demand
+        reg.gauge("repro_waiting_requests", "admission queue depth")
+        reg.gauge("repro_resuming_requests",
+                  "preempted requests awaiting resume")
+        reg.gauge("repro_running_slots", "occupied decode slots")
+        self.obs.tracer.thread_name(PID_ENGINE, 1, "steps")
+        self.kv.record_metrics(reg)
+
+    def _refresh_gauges(self) -> None:
+        """Pull point-in-time gauges into the registry: called by
+        ``stats()`` and by the /metrics exporter's refresh hook (on its
+        own thread), never per step. Host-side counts only: no tensor is
+        read and no CUDA call made."""
+        reg = self.obs.registry
+        reg.gauge("repro_waiting_requests").set(
+            len(self.scheduler.waiting))
+        reg.gauge("repro_resuming_requests").set(
+            len(self.scheduler.resuming))
+        reg.gauge("repro_running_slots").set(
+            len(self.scheduler.running))
+        self.kv.record_metrics(reg)
+
+    @contextlib.contextmanager
+    def _thread_state(self):
+        """The per-thread torch state every step runs under: no autograd
+        and, on the card, the engine's stream (see the module
+        docstring)."""
+        with torch.no_grad():
+            if self._stream is None:
+                yield
+            else:
+                with torch.cuda.stream(self._stream):
+                    yield
 
     # -- request API -----------------------------------------------------
     def submit(self, prompt, *, max_new_tokens: int = 32,
@@ -265,8 +365,13 @@ class Engine:
         req.state = RequestState.CANCELLED
         req.finish_reason = "cancelled"
         req.finish_s = time.perf_counter()
-        self.cancelled_by_stage[stage] = \
-            self.cancelled_by_stage.get(stage, 0) + 1
+        tracer = self.obs.tracer
+        if req.decode_span_open:
+            tracer.end("DECODE", pid=PID_REQUESTS, tid=req.rid)
+            req.decode_span_open = False
+        tracer.instant("CANCEL", pid=PID_REQUESTS, tid=req.rid,
+                       args={"stage": stage, "tokens": len(req.output)})
+        self._m_cancels.labels(stage=stage).inc()
         self.cancelled.append(req)
         if req.on_done is not None:
             req.on_done(req)
@@ -290,16 +395,16 @@ class Engine:
         1 + the prefill builds, as the JAX engine counts them."""
         kv = self.kv
         before = self.prefill_builds
-        self._decode(np.zeros((kv.max_slots, 1), np.int64),
-                     np.zeros((kv.max_slots,), bool), sink_only=True)
-        buckets, c = set(), 1
-        while c < self.scheduler.chunk:
-            buckets.add(self.adaptive.bucket_of(c))
-            c *= 2
-        buckets.add(self.adaptive.bucket_of(self.scheduler.chunk))
-        for b in sorted(buckets):
-            fn = self._prefill_fn(b, self.adaptive.cfg_for(b))
-            with torch.no_grad():
+        with self._thread_state():
+            self._decode(np.zeros((kv.max_slots, 1), np.int64),
+                         np.zeros((kv.max_slots,), bool), sink_only=True)
+            buckets, c = set(), 1
+            while c < self.scheduler.chunk:
+                buckets.add(self.adaptive.bucket_of(c))
+                c *= 2
+            buckets.add(self.adaptive.bucket_of(self.scheduler.chunk))
+            for b in sorted(buckets):
+                fn = self._prefill_fn(b, self.adaptive.cfg_for(b))
                 fn(kv.pools, kv.sink_page_table(),
                    torch.zeros((1,), dtype=torch.int32, device=self.device),
                    torch.zeros((1, b), dtype=torch.int64,
@@ -321,6 +426,9 @@ class Engine:
                     params, pools, page_table, pos0, tokens, valid_len,
                     rcfg, write_sink=sink)
             self.prefill_builds += 1
+            self._m_compiles.inc()
+            self._m_jit.labels(body="prefill").inc()
+            self.obs.tracer.instant("jit.trace", args={"body": "prefill"})
         self._prefill_fns[key] = fn
         while len(self._prefill_fns) > max(1, self.opts.cache_size):
             self._prefill_fns.pop(next(iter(self._prefill_fns)))
@@ -406,6 +514,7 @@ class Engine:
                          offload_s=cost.offload_s, choice=cost.choice)
         mode = self.scheduler.preempt(victim, self._preempt_mode(cost))
         self.preempts[mode] += 1
+        self._m_preempts.labels(mode=mode).inc()
         self.preempt_log.append(dict(entry, mode=mode))
 
     def _ensure(self, slot: int, tokens: int) -> bool:
@@ -438,29 +547,36 @@ class Engine:
     def step(self) -> Dict[str, Any]:
         """Admit, then run one step (a prefill chunk or a decode)."""
         t0 = time.perf_counter()
-        # storm injection (tests): preempt a victim every storm_every
-        # steps, whatever the pool holds
-        if (self.opts.storm_every and self.opts.preempt != "never"
-                and self.scheduler.running):
-            self._storm_tick += 1
-            if self._storm_tick >= self.opts.storm_every:
-                self._storm_tick = 0
-                victim = self._pick_victim()
-                if victim is not None:
-                    self._do_preempt(victim)
-        self.scheduler.admit()
-        action, req = self.scheduler.next_action()
-        info: Dict[str, Any] = {"kind": action}
-        if action == "prefill":
-            info.update(self._run_prefill(req))
-        elif action == "decode":
-            info.update(self._run_decode())
-        elif self.scheduler.waiting or self.scheduler.resuming:
-            raise RuntimeError("scheduler idle with waiting requests — "
-                               "admission wedged")
+        with self.obs.tracer.span("engine.step",
+                                  args={"step": self.step_count}) as sp, \
+                self._thread_state():
+            # storm injection (tests): preempt a victim every
+            # storm_every steps, whatever the pool holds
+            if (self.opts.storm_every and self.opts.preempt != "never"
+                    and self.scheduler.running):
+                self._storm_tick += 1
+                if self._storm_tick >= self.opts.storm_every:
+                    self._storm_tick = 0
+                    victim = self._pick_victim()
+                    if victim is not None:
+                        self._do_preempt(victim)
+            self.scheduler.admit()
+            action, req = self.scheduler.next_action()
+            sp["kind"] = action
+            info: Dict[str, Any] = {"kind": action}
+            if action == "prefill":
+                info.update(self._run_prefill(req))
+            elif action == "decode":
+                info.update(self._run_decode())
+            elif self.scheduler.waiting or self.scheduler.resuming:
+                raise RuntimeError("scheduler idle with waiting requests "
+                                   "— admission wedged")
+        dt = time.perf_counter() - t0
         if info.get("tokens"):          # a step that ran the model
-            self.step_s[action].append(time.perf_counter() - t0)
+            self.step_s[action].append(dt)
         self.step_count += 1
+        self._m_steps.labels(kind=action).inc()
+        self._m_step_s.labels(kind=action).observe(dt)
         return info
 
     def _run_prefill(self, req: Request) -> Dict[str, Any]:
@@ -473,7 +589,11 @@ class Engine:
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :c] = req.prefill_tokens[req.prefill_pos:
                                          req.prefill_pos + c]
-        with torch.no_grad():
+        tracer = self.obs.tracer
+        with tracer.span("prefill", args={"rid": req.rid}), \
+                tracer.span("PREFILL", pid=PID_REQUESTS, tid=req.rid,
+                            args={"chunk": c, "bucket": bucket,
+                                  "pos": req.prefill_pos}):
             logits, _ = fn(                    # the pools, written in place
                 kv.pools, kv.device_page_table(slot), kv.device_lens(slot),
                 torch.from_numpy(toks).to(self.device), c,
@@ -482,13 +602,15 @@ class Engine:
                                 [len(req.output)]).tolist()[0]
         req.prefill_pos += c
         kv.lens[slot] += c
-        self.prefill_tokens += c
+        self._m_prefill_tokens.inc(c)
         self.scheduler.prefill_advanced(req)
         if req.remaining_prefill == 0:
             # publish the finished prompt's full pages for later requests
             # that share the prefix (a no-op with the prefix cache off)
             kv.cache_slot_prefix(slot, req.prefill_tokens)
             req.state = RequestState.DECODE
+            tracer.begin("DECODE", pid=PID_REQUESTS, tid=req.rid)
+            req.decode_span_open = True
             # a recompute re-prefill replays tokens already emitted: its
             # final-chunk sample is the pending decode input, not new
             if not req.output and req.emit(tok, time.perf_counter()):
@@ -518,8 +640,8 @@ class Engine:
             active[s] = True
             by_slot[s] = req.sampling
             positions[s] = len(req.output)
-        logits = self._decode(tokens, active)
-        with torch.no_grad():
+        with self.obs.tracer.span("decode", args={"slots": len(slots)}):
+            logits = self._decode(tokens, active)
             toks = sample_tokens(logits, by_slot, positions).tolist()
         now = time.perf_counter()
         for s in slots:
@@ -535,8 +657,20 @@ class Engine:
         # before the slot frees: the trie's reference keeps them for the
         # conversation's next turn
         self.kv.cache_slot_prefix(req.slot, req.prefill_tokens)
+        tracer = self.obs.tracer
+        if req.decode_span_open:
+            tracer.end("DECODE", pid=PID_REQUESTS, tid=req.rid)
+            req.decode_span_open = False
+        tracer.instant("RETIRE", pid=PID_REQUESTS, tid=req.rid,
+                       args={"reason": req.finish_reason})
         self.scheduler.finish(req)
         self.done.append(req)
+        self._m_done.inc()
+        self._m_tokens.inc(len(req.output))
+        self._m_lat.observe(req.latency_s)
+        self._m_ttft.observe(req.ttft_s)
+        for g in req.itl_s:
+            self._m_itl.observe(g)
 
     def run_until_idle(self, max_steps: int = 1_000_000) -> None:
         steps = 0
@@ -552,21 +686,26 @@ class Engine:
         ttft = [r.ttft_s for r in self.done]
         itl = [g for r in self.done for g in r.itl_s]
         pre, dec = self.step_s["prefill"], self.step_s["decode"]
+        self._refresh_gauges()
+        reg = self.obs.registry
+        prefill_tokens = int(self._m_prefill_tokens.value)
         return {
             "device": str(self.device),
             "attn_kernel": self.attn_kernel,
             "requests_done": len(self.done),
             "requests_cancelled": len(self.cancelled),
-            "cancelled_by_stage": dict(self.cancelled_by_stage),
+            "cancelled_by_stage": {
+                dict(c.labels)["stage"]: int(c.value)
+                for c in self._m_cancels.children()},
             "tokens_generated": sum(len(r.output) for r in self.done),
             "engine_steps": self.step_count,
             "prefill_steps": len(pre),
             "decode_steps": len(dec),
-            "prefill_tokens": self.prefill_tokens,
+            "prefill_tokens": prefill_tokens,
             "decode_tokens": self.decode_tokens,
             "prefill_s": sum(pre),
             "decode_s": sum(dec),
-            "prefill_tok_per_s": self.prefill_tokens / max(sum(pre), 1e-12),
+            "prefill_tok_per_s": prefill_tokens / max(sum(pre), 1e-12),
             "decode_tok_per_s": self.decode_tokens / max(sum(dec), 1e-12),
             "p50_decode_step_s": quantile(dec, 50),
             "p50_latency_s": quantile(lat, 50),
@@ -575,6 +714,16 @@ class Engine:
             "p99_ttft_s": quantile(ttft, 99),
             "p50_itl_s": quantile(itl, 50),
             "p99_itl_s": quantile(itl, 99),
+            # live gauges, read back from the registry so /metrics and
+            # stats() report the same values by construction
+            "queue_waiting": int(reg.gauge("repro_waiting_requests").value),
+            "queue_resuming": int(
+                reg.gauge("repro_resuming_requests").value),
+            "running_slots": int(reg.gauge("repro_running_slots").value),
+            "free_units_by_shard": {
+                dict(c.labels)["shard"]: int(c.value)
+                for c in reg.get("repro_kv_free_units").children()},
+            "kv_shards": 1,             # one device: one shard, "0"
             "decode_captures": self._decode.captures,
             "decode_replays": self._decode.replays,
             "prefix_cache": self.opts.prefix_cache,

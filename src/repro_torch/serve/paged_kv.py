@@ -147,6 +147,10 @@ class PagedKVCache(StateCache):
         return len(self._free) + self._reclaimable()
 
     @property
+    def free_units(self) -> int:
+        return self.free_pages
+
+    @property
     def capacity_pages(self) -> int:
         """Allocatable pages (the sink is reserved)."""
         return self.num_pages - 1
@@ -528,6 +532,42 @@ class PagedKVCache(StateCache):
     def prefix_shared_pages(self) -> int:
         """Pages with more than one referent."""
         return int(np.count_nonzero(self._refs >= 2))
+
+    def record_metrics(self, registry) -> None:
+        super().record_metrics(registry)
+        self.record_shard_metrics(registry)
+
+    def record_shard_metrics(self, registry) -> None:
+        """The paged gauges per shard (one shard, label "0") and, with
+        the prefix cache on, the prefix cache's, as the JAX package's
+        ``PagedKVCache.record_shard_metrics``. Host-side counts only."""
+        free = registry.gauge("repro_kv_free_pages",
+                              "free KV pages per shard", ["shard"])
+        held = registry.gauge("repro_kv_held_bytes",
+                              "resident KV bytes per shard", ["shard"])
+        free.labels(shard=0).set(self.free_pages)
+        held.labels(shard=0).set(self.used_pages * self.page_bytes)
+        if not self.prefix_enabled:
+            return
+        g = registry.gauge
+        g("repro_prefix_cached_pages", "pages published in the prefix trie",
+          ["shard"]).labels(shard=0).set(self.prefix_cached_pages)
+        g("repro_prefix_shared_pages", "pages with more than one referent",
+          ["shard"]).labels(shard=0).set(self.prefix_shared_pages)
+        g("repro_prefix_hits",
+          "prefix-cache admission hits").set(self.prefix_hits)
+        g("repro_prefix_misses",
+          "prefix-cache admission misses").set(self.prefix_misses)
+        g("repro_prefix_hit_tokens",
+          "prompt tokens served from the prefix cache"
+          ).set(self.prefix_hit_tokens)
+        g("repro_prefix_evicted_pages",
+          "trie references dropped by eviction/steal"
+          ).set(self.prefix_evicted_pages)
+        g("repro_prefix_cow_copies",
+          "copy-on-write page duplications").set(self.prefix_cow_copies)
+        g("repro_prefix_cow_bytes",
+          "bytes duplicated by copy-on-write").set(self.prefix_cow_bytes)
 
     def check_integrity(self) -> None:
         """Refcount audit (a test hook): every page is free (refcount 0,

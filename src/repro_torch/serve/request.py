@@ -63,6 +63,10 @@ class Request:
     resume_to: str = ""                    # "prefill" | "decode"
     cached_tokens: int = 0                 # KV tokens parked in host memory
     preempt_count: int = 0
+    # telemetry: a DECODE B-span is open on the request's trace track
+    # (repro_torch.obs); its closer (preempt, retire or cancel) must
+    # balance it
+    decode_span_open: bool = False
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)

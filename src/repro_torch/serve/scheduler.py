@@ -23,12 +23,18 @@ single-device part of ``repro.serve.scheduler``.
   from any live stage.
 * **Interleaving**: prefill is chunked and alternates with decode when
   both have work, bounding decode-token latency by one chunk.
+* **Telemetry** (``obs``, a ``repro_torch.obs.Recorder``): the JAX
+  scheduler's ``repro_resumes_total`` and ``repro_admits_total{kind}``
+  counters, and the ``ADMIT``, ``RESUME`` and ``PREEMPT`` instants on
+  the request's trace track, with the ``DECODE`` span opened on a resume
+  into decode and closed at preemption.
 """
 from __future__ import annotations
 
 from collections import deque
 from typing import Deque, Dict, List, Optional, Tuple
 
+from repro_torch.obs import PID_REQUESTS, Recorder
 from repro_torch.serve.request import Request, RequestState
 from repro_torch.serve.state_cache import StateCache
 
@@ -37,7 +43,8 @@ __all__ = ["Scheduler"]
 
 class Scheduler:
     def __init__(self, kv: StateCache, *, chunk: int = 64,
-                 full_reserve: bool = False):
+                 full_reserve: bool = False,
+                 obs: Optional[Recorder] = None):
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
         self.kv = kv
@@ -49,6 +56,11 @@ class Scheduler:
         self._prefilling: Deque[int] = deque()         # slots, FCFS
         self._last_was_prefill = False
         self.resume_count = 0
+        self.obs = obs if obs is not None else Recorder()
+        self._m_resumes = self.obs.registry.counter(
+            "repro_resumes_total", "preempted requests resumed")
+        self._m_admits = self.obs.registry.counter(
+            "repro_admits_total", "admissions by kind", ["kind"])
 
     # -- queue side ------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -88,11 +100,19 @@ class Scheduler:
                 hit, _ = self.kv.match_prefix(req.prefill_tokens, need)
                 if hit is None and not self.kv.can_admit(need):
                     break
-                req.prefill_pos = self.kv.alloc_slot_prefix(
+                cached = self.kv.alloc_slot_prefix(
                     slot, need, req.prefill_tokens,
                     page_aligned=self.full_reserve)
+                req.prefill_pos = cached        # skip the cached prefix
                 self.waiting.popleft()
                 req.state = RequestState.PREFILL
+                self._m_admits.labels(kind="fresh").inc()
+                tracer = self.obs.tracer
+                tracer.thread_name(PID_REQUESTS, req.rid, f"req {req.rid}")
+                tracer.instant("ADMIT", pid=PID_REQUESTS, tid=req.rid,
+                               args={"shard": 0, "slot": slot,
+                                     "reserved_tokens": need,
+                                     "cached_tokens": cached})
             else:
                 break
             req.slot = slot
@@ -116,6 +136,14 @@ class Scheduler:
         req.preempt_mode = ""
         req.cached_tokens = 0
         self.resume_count += 1
+        self._m_resumes.inc()
+        self._m_admits.labels(kind="resume").inc()
+        tracer = self.obs.tracer
+        tracer.instant("RESUME", pid=PID_REQUESTS, tid=req.rid,
+                       args={"to": req.resume_to, "slot": slot})
+        if req.state == RequestState.DECODE:
+            tracer.begin("DECODE", pid=PID_REQUESTS, tid=req.rid)
+            req.decode_span_open = True
 
     # -- preemption ------------------------------------------------------
     def preempt(self, req: Request, mode: str = "recompute") -> str:
@@ -147,6 +175,13 @@ class Scheduler:
         req.preempt_mode = mode
         req.preempt_count += 1
         self.resuming.append(req)
+        tracer = self.obs.tracer
+        if req.decode_span_open:
+            tracer.end("DECODE", pid=PID_REQUESTS, tid=req.rid)
+            req.decode_span_open = False
+        tracer.instant("PREEMPT", pid=PID_REQUESTS, tid=req.rid,
+                       args={"mode": mode, "resume_to": req.resume_to,
+                             "cached_tokens": req.cached_tokens})
         return mode
 
     # -- cancellation ----------------------------------------------------

@@ -10,7 +10,8 @@ by offload (``offload_slot`` / ``restore_slot`` / ``can_restore`` /
 cache (``match_prefix``, ``alloc_slot_prefix``, ``cache_slot_prefix``,
 ``ensure_private``: no-op defaults here), the step inputs (``pools``;
 prefill's ``device_page_table``, ``device_lens``, ``sink_row``; decode's
-``decode_inputs``) and byte accounting. The one implementation here is
+``decode_inputs``), byte accounting and the telemetry gauges
+(``record_metrics``). The one implementation here is
 :class:`~repro_torch.serve.paged_kv.PagedKVCache`; the constant-state
 and composite caches come with ROADMAP.md's 'Other architectures'
 slice.
@@ -64,6 +65,8 @@ class StateCache(abc.ABC):
     """
 
     kind: str = "abstract"
+    swap_out_bytes: int = 0            # cumulative offload traffic
+    swap_in_bytes: int = 0             # cumulative restore traffic
 
     def __init__(self, *, max_slots: int, device):
         self.max_slots = int(max_slots)
@@ -221,3 +224,35 @@ class StateCache(abc.ABC):
     @abc.abstractmethod
     def peak_used_bytes(self) -> int:
         """High-water mark of ``used_bytes``."""
+
+    @property
+    @abc.abstractmethod
+    def free_units(self) -> int:
+        """Free allocation units (pages for a paged cache)."""
+
+    def record_metrics(self, registry) -> None:
+        """Refresh this cache's point-in-time gauges into a
+        ``repro_torch.obs`` registry (family registration is idempotent),
+        with the JAX package's families. Called on demand (by
+        ``Engine.stats()`` and the ``/metrics`` exporter's refresh hook),
+        never per step. Every value is a host-side count: no tensor is
+        read, so the exporter thread makes no CUDA call. Subclasses
+        extend it through ``super()``."""
+        g = registry.gauge
+        g("repro_kv_cache_bytes",
+          "allocated device state bytes").set(self.cache_bytes)
+        g("repro_kv_used_bytes",
+          "state bytes bound to live sequences").set(self.used_bytes)
+        g("repro_kv_host_bytes",
+          "bytes parked in the host offload pool").set(self.host_bytes)
+        g("repro_kv_offloaded_requests",
+          "requests parked in the host pool").set(self.offloaded_count)
+        g("repro_swap_out_bytes",
+          "cumulative device-to-host offload traffic").set(
+            self.swap_out_bytes)
+        g("repro_swap_in_bytes",
+          "cumulative host-to-device restore traffic").set(
+            self.swap_in_bytes)
+        g("repro_kv_free_units",
+          "free cache units (pages or slots) per shard",
+          ["shard"]).labels(shard=0).set(self.free_units)
