@@ -32,7 +32,9 @@ order; any failure ends the run with a non-zero exit and no result line:
    (moe-gpt3-s top-1, DeepSeek-V2-Lite top-6: the experts no token
    reached must come out exactly 0, and the bound counts only the
    weights of the experts that were reached); flash attention at the
-   training shape, with a window, with GQA and at head dim 128. Limits: 1e-5 in fp32 (the MLA kernel: ``ref.tolerance_mla``, the
+   training shape, with a window, with GQA, at head dim 128 and at MLA's
+   head dim 192 (B 4 x S 1024 and the fixed-batch loop's B 8 x S 64, 16
+   heads; the ``kernels`` line carries these rows). Limits: 1e-5 in fp32 (the MLA kernel: ``ref.tolerance_mla``, the
    same in both dtypes); in bf16 each kernel's ``ref.tolerance``: one
    rounding of the largest output for paged decode and the expert FFN,
    and for flash attention a limit per element (one output rounding plus
@@ -99,8 +101,12 @@ order; any failure ends the run with a non-zero exit and no result line:
    factor 8.0 SSE tokens, sequential and 8 at once, equal in-process,
    and a ``degrade``-clamped stream a prefix of its request alone;
 8. kernel vs gather: equal greedy decode tokens at full width, 2
-   layers, fp32, through the kernel captured and eager and the gather
-   path;
+   layers, fp32, capacity factor 8.0, through the kernel captured and
+   eager, the gather path and ``dense_greedy_reference`` (one request at
+   a time over a dense cache); then at the config's 1.25, measured and
+   not asserted (``oracle-cf1.25``): (a) the requests equal to the oracle
+   and each first differing (request, token), (b) two identical captured
+   runs against each other;
 9. serve DeepSeek-V2-Lite: full width and depth (27 layers, 16.2 B
    parameters) in bf16 through the launcher's ``main``, then through
    ``Engine`` with 8 seeded requests: memory right after the engine's
@@ -112,18 +118,29 @@ order; any failure ends the run with a non-zero exit and no result line:
    and the swap bytes and GB/s;
 10. prefix cache, DeepSeek-V2-Lite: as 5 over the same weights, with 8
    conversations, one pair;
-11. kernel vs gather, DeepSeek-V2-Lite: as 7, at 2 layers;
-12. prefix on vs off, exact: both models at 2 layers in fp32, capacity
+11. the dense-cache path: the launcher's fixed-batch loop (no
+   ``--engine``; ``lm.prefill`` through the flash kernel, at D 192 for
+   MLA, and ``lm.decode_step`` over a dense cache) in bf16 at full width
+   and depth over phases 4 and 9's weights, moe-gpt3-s and
+   DeepSeek-V2-Lite, 2 batches of 8 (``fixed-batch`` lines: tokens,
+   tok/s, the dense decode step's p50 ms beside the captured engine's,
+   ``max_memory_allocated``, launches checked per prefill and step);
+   then full-width, full-depth moe-gpt3-s in fp32: the captured engine's
+   greedy tokens of 8 requests equal to ``dense_greedy_reference``'s at
+   capacity factor 8.0, and the 1.25 measurement of phase 8
+   (``tools/dense_phase.py`` runs this phase alone);
+12. kernel vs gather, DeepSeek-V2-Lite: as 8, at 2 layers;
+13. prefix on vs off, exact: both models at 2 layers in fp32, capacity
    factor 8.0, the chat trace through the captured kernel path: greedy
    tokens of both turns equal with the cache on and off (where a pair
    parts: the step, the top-2 logit gap there and the largest K/V
    difference of reused against recomputed pages, then a failure);
-13. train: full-width moe-gpt3-s (bf16 compute, fp32 params, AdamW),
+14. train: full-width moe-gpt3-s (bf16 compute, fp32 params, AdamW),
    batch 8 x 1024, n = 4, through ``runtime.train``: 6 steps under NONE,
    2 under each of S1-S4; every loss finite and each kernel launched
    exactly ``LAUNCHES_PER_STEP`` times a step; step ms, tokens/s, peak
    memory and a profiled step's device-busy share per strategy;
-14. adaptive (n, strategy): full-width moe-gpt3-s trained by
+15. adaptive (n, strategy): full-width moe-gpt3-s trained by
    ``runtime.train`` through the online controller over batches of
    8192, 4096 and 2048 tokens (``ADAPTIVE_TRACE``, a retune timer of 4
    steps), candidates measured by wall clock on the card beside the
@@ -135,13 +152,15 @@ order; any failure ends the run with a non-zero exit and no result line:
    of a launch (``eta_sigma``); ``Engine`` with its adaptive defaults on
    8 requests, launches per prefill chunk at each bucket's resolved n,
    and a mid-run wall-clock probe that must write only the sink page;
-15. card vs CPU: 3 fp32 steps of 2-layer full-width moe-gpt3-s on the
+16. card vs CPU: 3 fp32 steps of 2-layer full-width moe-gpt3-s on the
    card (kernels) and on the CPU (plain versions), losses within
    ``CARD_VS_CPU_RTOL``;
-16. the ``kernels`` JSON line; 17. the ``ok`` JSON line, last.
+17. the ``kernels`` JSON line; 18. the ``ok`` JSON line, last.
 
-The serving phases 4-12 fix n = 4 (``adaptive=False``, the launcher's
-``--num-partitions 4``), so their numbers compare with earlier runs.
+The serving phases 4-10 and 12-13 fix n = 4 (``adaptive=False``, the
+launcher's ``--num-partitions 4``), so their numbers compare with earlier
+runs; phase 11's fixed-batch loop resolves n for its prefill tokens, as
+the JAX launcher's loop does.
 
 Exits non-zero without CUDA, and in a directory holding this file alone.
 """
@@ -702,6 +721,12 @@ def check_routed(torch, case, arch, seed):
         max_abs_ref=ref.float().abs().max().item())
 
 
+# the flash kernel's head-dim-192 rows (MLA's expanded prefill) as the
+# kernels line carries them beside the kernel's head row
+D192_KEYS = ("case", "dtype", "shape", "max_abs_err", "tol", "ms",
+             "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+
 def attended_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
     total = 0
     for i in range(sq):
@@ -750,9 +775,10 @@ def train_kernel_cases(torch) -> list:
     moe-gpt3-s's training chunk (C 40) and decode/prefill capacity (C 8),
     gated silu, a ragged C and DeepSeek-V2-Lite's gated silu experts (E
     64, C 8, M 2048, H 1408), and (bf16) on the routed decode buffers of
-    both models; attention at the training shape, with a window, with GQA
-    and at head dim 128 (the serving path does not run it: prefill keeps
-    the blockwise attention)."""
+    both models; attention at the training shape, with a window, with GQA,
+    at head dim 128, and at MLA's head dim 192 (the dense MLA prefill:
+    DeepSeek-V2-Lite's 16 heads at 4 x 1024 tokens, and the fixed-batch
+    loop's 8 x 64)."""
     rows = []
     for dtype in ("bfloat16", "float32"):
         for case, t in (("train", 2048), ("serve_decode", 8),
@@ -780,12 +806,14 @@ def train_kernel_cases(torch) -> list:
                                ("routed_decode_deepseek", DEEPSEEK)):
                 rows.append(check_routed(torch, case, arch,
                                          seed=10 * len(rows)))
-        for case, b, hq, kv, d, window, lib in (
-                ("train", 8, 8, 8, 96, 0, True),
-                ("window256", 8, 8, 8, 96, 256, False),
-                ("gqa4", 8, 8, 2, 96, 0, False),
-                ("d128", 4, 16, 16, 128, 0, True)):
-            rows.append(check_flash(torch, case, b, 1024, hq, kv, d, window,
+        for case, b, s, hq, kv, d, window, lib in (
+                ("train", 8, 1024, 8, 8, 96, 0, True),
+                ("window256", 8, 1024, 8, 8, 96, 256, False),
+                ("gqa4", 8, 1024, 8, 2, 96, 0, False),
+                ("d128", 4, 1024, 16, 16, 128, 0, True),
+                ("d192", 4, 1024, 16, 16, 192, 0, True),
+                ("d192_fixed_batch", 8, 64, 16, 16, 192, 0, True)):
+            rows.append(check_flash(torch, case, b, s, hq, kv, d, window,
                                     dtype, seed=10 * len(rows),
                                     library=lib))
         torch.cuda.empty_cache()
@@ -1167,7 +1195,8 @@ def deepseek_phase(torch, build, launcher) -> tuple:
     seeded requests (prompts 16-256, 16-32 new tokens), its decode
     profile, capture vs eager in turns and the same requests under
     ``preempt="auto"`` with a 48-page pool. Returns the first ``Engine``
-    run's kernel launches and the weights, for the prefix-cache phase."""
+    run's kernel launches, the weights (for the prefix-cache and dense
+    phases) and that run's p50 decode step ms."""
     import gc
     from repro_torch.models.module import leaves
     from repro_torch.serve import Engine, EngineOptions
@@ -1235,17 +1264,65 @@ def deepseek_phase(torch, build, launcher) -> tuple:
     del engine, handles
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, params
+    return launches, params, row["p50_decode_step_ms"]
+
+
+def with_capacity(cfg, cf: float):
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf))
+
+
+def oracle_tokens(cfg, params, reqs) -> list:
+    """``dense_greedy_reference`` of each request, one at a time."""
+    from repro_torch.serve import dense_greedy_reference
+    return [dense_greedy_reference(params, cfg, p, m) for p, m in reqs]
+
+
+def captured_tokens(cfg, params, reqs, reset=None) -> tuple:
+    """Greedy tokens of a captured kernel-path engine over ``params``,
+    and its launches from ``reset`` on."""
+    from repro_torch.serve import Engine, EngineOptions
+    eng = Engine(cfg, params, options=EngineOptions(
+        device="cuda", attn_kernel="kernel", adaptive=False, **ENGINE))
+    eng, hs, _, _ = serve(cfg, reqs, engine=eng, reset=reset)
+    out = [list(r.output) for r in hs]
+    return out, eng
+
+
+def oracle_at_125(cfg, params, reqs, tag: str) -> dict:
+    """At the config's capacity factor 1.25, measured and not asserted:
+    (a) how many requests of the captured engine equal the oracle, and
+    each first differing (request, token): batched decode drops tokens
+    that the one-request oracle does not; (b) two identical captured
+    runs against each other: a difference there is run to run, what
+    idle slots sharing one sink offset would cause."""
+    cfg = with_capacity(cfg, 1.25)
+    runs = [captured_tokens(cfg, params, reqs)[0] for _ in range(2)]
+    want = oracle_tokens(cfg, params, reqs)
+    parted = [[i, first_parting([g], [w])[1]]
+              for i, (g, w) in enumerate(zip(runs[0], want)) if g != w]
+    row = dict(tag=tag, capacity_factor=1.25, requests=len(reqs),
+               tokens=sum(map(len, want)),
+               equal_to_oracle=len(reqs) - len(parted),
+               first_differing=parted,
+               run_to_run_equal=runs[0] == runs[1],
+               run_to_run_first_parting=first_parting(runs[0], runs[1]))
+    log("oracle-cf1.25 " + json.dumps(row))
+    return row
 
 
 def gather_vs_kernel(torch, arch: str) -> None:
     """Equal greedy tokens through the decode kernel, captured and eager,
-    and through the gather path (captured): full width, 2 layers, fp32,
-    8 requests."""
-    cfg = serve_config(num_layers=2, dtype="float32", arch=arch)
+    through the gather path (captured) and from ``dense_greedy_reference``
+    (one request at a time over a dense cache): full width, 2 layers,
+    fp32, capacity factor 8.0 (no token is dropped, so the batch does not
+    change a request's tokens), 8 requests; then ``oracle_at_125``."""
+    cfg = with_capacity(serve_config(num_layers=2, dtype="float32",
+                                     arch=arch), 8.0)
     small = requests(cfg.vocab_size, 8, seed=2, prompt=(16, 200),
                      gen=(16, 32))
     outs = {}
+    params = None
     for kern, graph in (("kernel", True), ("kernel", False),
                         ("gather", True)):
         eng, hs, _, _ = serve(cfg, small, attn_kernel=kern,
@@ -1256,20 +1333,121 @@ def gather_vs_kernel(torch, arch: str) -> None:
                                  f"{eng.stats()['decode_captures']} "
                                  f"captures with decode_graph={graph}")
         outs[(kern, graph)] = [list(r.output) for r in hs]
+        params = eng.params
         del eng, hs
+    outs[("oracle", False)] = oracle_tokens(cfg, params, small)
     ref = outs[("kernel", True)]
     for key, got in outs.items():
         if got != ref:
-            first = next((i, j) for i, (a, b) in enumerate(zip(got, ref))
-                         for j in range(max(len(a), len(b)))
-                         if a[j:j + 1] != b[j:j + 1])
             raise AssertionError(
                 f"{arch}: fp32 2-layer greedy tokens of {key} differ from "
-                f"the captured kernel path's at (request, token) {first}")
-    log(f"kernel-vs-gather {arch} fp32 2 layers: "
+                f"the captured kernel path's at (request, token) "
+                f"{first_parting(got, ref)}")
+    log(f"kernel-vs-gather {arch} fp32 2 layers capacity 8.0: "
         f"{sum(map(len, ref))} greedy tokens equal (kernel captured, "
-        f"kernel eager, gather captured)")
+        f"kernel eager, gather captured, dense_greedy_reference)")
+    oracle_at_125(cfg, params, small, f"{arch} 2 layers")
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the dense-cache path
+# ---------------------------------------------------------------------------
+
+FIXED_BATCH = {"moe-gpt3-s": ("128", "32"), DEEPSEEK: ("64", "16")}
+
+
+def fixed_batch(torch, build, launcher, arch: str, params,
+                engine_p50_ms=None) -> collections.Counter:
+    """The launcher's fixed-batch loop (no ``--engine``) at full width and
+    depth in bf16 over ``params``: 2 batches of 8 prompts, prefill (n
+    resolved for the batch's tokens) and dense decode. Checks each
+    request batch's tokens and the launches: flash once per attention
+    layer of every prefill, router and expert FFN once per MoE layer of
+    every chunk (the prefill's n, a decode step's one). Logs tok/s, the
+    dense decode step's p50 ms beside the captured engine's
+    (``engine_p50_ms``, from the serve phase), and
+    ``max_memory_allocated`` beside what the card held before (every
+    weight still alive). Returns the launches."""
+    from repro_torch.core.pipeline_moe import _resolve_partitions
+    plen, gen = FIXED_BATCH[arch]
+    argv = ["--arch", arch, "--batch", "8", "--prompt-len", plen,
+            "--gen", gen, "--requests", "2", "--seed", "1"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    build.reset_launches()
+    stats = launcher.main(argv, params=params)
+    torch.cuda.synchronize()
+    launches = collections.Counter(build.LAUNCHES)
+    cfg = serve_config(arch=arch)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_partitions=stats["num_partitions"]))
+    chunks = _resolve_partitions(cfg, 8 * int(plen), "prefill")
+    n_moe = cfg.num_periods * sum(r["moe"] for r in cfg.layer_roles())
+    want = {"flash_attention": cfg.num_layers * 2,
+            "topk_router": n_moe * (2 * chunks + stats["decode_steps"]),
+            "grouped_ffn": n_moe * (2 * chunks + stats["decode_steps"])}
+    if {k: launches[k] for k in want} != want or not stats["decode_steps"]:
+        raise AssertionError(f"fixed-batch {arch}: launches "
+                             f"{dict(launches)}, expected {want}")
+    if stats["tokens_generated"] < 2 * 8 * (int(gen) // 2):
+        raise AssertionError(f"fixed-batch {arch}: {stats}")
+    row = dict(arch=arch, dtype=cfg.compute_dtype, batch=8,
+               prompt_len=int(plen), gen=int(gen), requests=2,
+               tokens=stats["tokens_generated"], wall_s=stats["wall_s"],
+               tok_per_s=stats["tok_per_s"],
+               p50_decode_step_ms=stats["p50_decode_step_ms"],
+               engine_p50_decode_step_ms=engine_p50_ms,
+               decode_steps=stats["decode_steps"],
+               n=stats["num_partitions"], strategy=stats["strategy"],
+               prefill_chunks=chunks,
+               memory_allocated_before=held,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               launches=dict(launches))
+    log("fixed-batch " + json.dumps(row))
+    return launches
+
+
+def oracle_full_depth(torch, build) -> collections.Counter:
+    """Full-width, full-depth moe-gpt3-s in fp32 (7.8 GB of weights),
+    8 seeded requests: the captured engine's greedy tokens equal
+    ``dense_greedy_reference``'s at capacity factor 8.0; then
+    ``oracle_at_125``. Returns the launches of the engine run and of
+    the oracle's prefills and decode steps."""
+    import gc
+
+    from repro_torch.models import lm
+    cfg = with_capacity(serve_config(dtype="float32"), 8.0)
+    params = lm.init(cfg, 0, device="cuda")
+    reqs = requests(cfg.vocab_size, 8, seed=4, prompt=(16, 128),
+                    gen=(16, 32))
+    got, eng = captured_tokens(cfg, params, reqs, reset=build.reset_launches)
+    launches = collections.Counter(build.LAUNCHES)
+    check_replays(cfg, eng, "paged_decode_attention")
+    del eng
+    build.reset_launches()
+    t0 = time.perf_counter()
+    want = oracle_tokens(cfg, params, reqs)
+    oracle_s = time.perf_counter() - t0
+    oracle_launches = collections.Counter(build.LAUNCHES)
+    if oracle_launches["flash_attention"] != cfg.num_layers * len(reqs):
+        raise AssertionError(f"the oracle's prefills launched flash "
+                             f"{oracle_launches['flash_attention']} times")
+    if got != want:
+        raise AssertionError(
+            f"moe-gpt3-s fp32 full depth capacity 8.0: the captured "
+            f"engine parts from dense_greedy_reference at (request, "
+            f"token) {first_parting(got, want)}")
+    log(f"oracle-vs-engine moe-gpt3-s fp32 12 layers capacity 8.0: "
+        f"{sum(map(len, want))} greedy tokens of {len(reqs)} requests "
+        f"equal (captured engine, dense_greedy_reference in "
+        f"{oracle_s:.1f} s)")
+    oracle_at_125(cfg, params, reqs, "moe-gpt3-s 12 layers")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches + oracle_launches
 
 
 def timed_swaps(torch, kv) -> list:
@@ -3022,6 +3200,7 @@ def main() -> int:
         launches=dict(serve_launches),
         max_memory_allocated=torch.cuda.max_memory_allocated())
     check_replays(cfg, engine, "paged_decode_attention")
+    engine_p50 = {"moe-gpt3-s": serve_row["p50_decode_step_ms"]}
     log("serve " + json.dumps(serve_row))
     log("serve-sample " + json.dumps(serve_sample(1, engine, host)))
     log("decode-profile " + json.dumps(profile_decode(torch, engine)))
@@ -3047,6 +3226,7 @@ def main() -> int:
     # -- 7. telemetry, the Poisson replay and the ingress --------------------
     log(f"phase 7 at {time.perf_counter() - t_start:.1f} s")
     obs_launches = obs_phase(torch, build, params)
+    gpt_params = params
     del params
 
     # -- 8. kernel vs gather ------------------------------------------------
@@ -3055,7 +3235,8 @@ def main() -> int:
 
     # -- 9. serve DeepSeek-V2-Lite ------------------------------------------
     log(f"phase 9 at {time.perf_counter() - t_start:.1f} s")
-    deepseek_launches, params = deepseek_phase(torch, build, launcher)
+    deepseek_launches, params, engine_p50[DEEPSEEK] = deepseek_phase(
+        torch, build, launcher)
 
     # -- 10. prefix cache, DeepSeek-V2-Lite ----------------------------------
     log(f"phase 10 at {time.perf_counter() - t_start:.1f} s")
@@ -3063,40 +3244,48 @@ def main() -> int:
     prefix_launches += prefix_pairs(
         torch, build, cfg, params, chat_trace(cfg.vocab_size, 8, seed=12),
         "paged_mla_decode", "deepseek", pairs=1)
-    del params
+
+    # -- 11. the dense-cache path -------------------------------------------
+    log(f"phase 11 at {time.perf_counter() - t_start:.1f} s")
+    dense_launches = fixed_batch(torch, build, launcher, "moe-gpt3-s",
+                                 gpt_params, engine_p50["moe-gpt3-s"])
+    dense_launches += fixed_batch(torch, build, launcher, DEEPSEEK, params,
+                                  engine_p50[DEEPSEEK])
+    del params, gpt_params
     gc.collect()
     torch.cuda.empty_cache()
+    dense_launches += oracle_full_depth(torch, build)
 
-    # -- 11. kernel vs gather, DeepSeek-V2-Lite ----------------------------
-    log(f"phase 11 at {time.perf_counter() - t_start:.1f} s")
+    # -- 12. kernel vs gather, DeepSeek-V2-Lite ----------------------------
+    log(f"phase 12 at {time.perf_counter() - t_start:.1f} s")
     gather_vs_kernel(torch, DEEPSEEK)
 
-    # -- 12. prefix on vs off, exact ----------------------------------------
-    log(f"phase 12 at {time.perf_counter() - t_start:.1f} s")
+    # -- 13. prefix on vs off, exact ----------------------------------------
+    log(f"phase 13 at {time.perf_counter() - t_start:.1f} s")
     for arch, n in (("moe-gpt3-s", 16), (DEEPSEEK, 8)):
         prefix_exact(torch, build, arch, n)
     torch.cuda.empty_cache()
 
-    # -- 13. train ----------------------------------------------------------
-    log(f"phase 13 at {time.perf_counter() - t_start:.1f} s")
+    # -- 14. train ----------------------------------------------------------
+    log(f"phase 14 at {time.perf_counter() - t_start:.1f} s")
     train_rows, train_launches = train_phase(torch, build)
 
-    # -- 14. adaptive (n, strategy) ----------------------------------------
-    log(f"phase 14 at {time.perf_counter() - t_start:.1f} s")
+    # -- 15. adaptive (n, strategy) ----------------------------------------
+    log(f"phase 15 at {time.perf_counter() - t_start:.1f} s")
     adaptive_launches = adaptive_train_phase(torch, build)
     strategy_memory(torch)
     eta_sigma(torch)
     adaptive_launches += adaptive_serve_phase(torch, build)
 
-    # -- 15. card vs CPU ----------------------------------------------------
-    log(f"phase 15 at {time.perf_counter() - t_start:.1f} s")
+    # -- 16. card vs CPU ----------------------------------------------------
+    log(f"phase 16 at {time.perf_counter() - t_start:.1f} s")
     card_vs_cpu(torch)
 
-    # -- 16. kernels line ---------------------------------------------------
-    log(f"phase 16 at {time.perf_counter() - t_start:.1f} s")
+    # -- 17. kernels line ---------------------------------------------------
+    log(f"phase 17 at {time.perf_counter() - t_start:.1f} s")
     main_launches = (serve_launches + offload_launches + prefix_launches
                      + cancel_launches + obs_launches + deepseek_launches
-                     + train_launches + adaptive_launches)
+                     + dense_launches + train_launches + adaptive_launches)
     def head(kernel, case="train", dtype="bfloat16"):
         return next(r for r in kernel_rows if r["kernel"] == kernel
                     and r["case"] == case and r["dtype"] == dtype
@@ -3140,10 +3329,13 @@ def main() -> int:
                                                "float32"),
               entry="route_plan: probs, idx, dest and valid in one launch"),
         entry("flash_attention", "flash_attention/csrc/flash_attention.cu",
-              "flash_attention/kernel.py:67", head("flash_attention")),
+              "flash_attention/kernel.py:67", head("flash_attention"),
+              d192=[{k: r[k] for k in D192_KEYS} for r in kernel_rows
+                    if r["kernel"] == "flash_attention"
+                    and r["case"].startswith("d192")]),
     ]}), flush=True)
 
-    # -- 17. result ---------------------------------------------------------
+    # -- 18. result ---------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -17,10 +17,14 @@
 // 989 TFLOP/s. Both are close, so the kernel has to keep the tensor cores
 // fed and touch every byte of q, k, v and o about once from HBM.
 //
-// bf16 design (FlashAttention-2 on mma.sync.m16n8k16, D <= 128):
+// bf16 design (FlashAttention-2 on mma.sync.m16n8k16, D <= 192):
 //  * One 128-thread block (4 warps) per (batch * query head, 128-row query
 //    tile); each warp owns 32 query rows as two 16-row m-tiles, so every
-//    K and V fragment it loads from shared memory feeds two products. The
+//    K and V fragment it loads from shared memory feeds two products.
+//    Above D 128 (MLA's expanded prefill runs D 192: nope 128 + rope 64,
+//    v padded to match) a warp owns one m-tile and a block 64 rows: two
+//    m-tiles would hold 2 x 24 x 4 output accumulators a thread at D 192,
+//    which with the scores would spill. The
 //    grid's first dimension is batch * head and its second runs the query
 //    tiles from the last (the longest under causal masking) to the first,
 //    so the longest tiles start first and the short ones fill the tail.
@@ -66,12 +70,15 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBQ = 16 * kWarps;   // query rows per fp32 block
-constexpr int kWM = 2;             // bf16: 16-row m-tiles a warp
-constexpr int kBQ2 = 16 * kWM * kWarps;  // query rows per bf16 block
+// bf16: 16-row m-tiles a warp at head dim d, and query rows a block
+__host__ __device__ constexpr int bf16_wm(int d) { return d > 128 ? 1 : 2; }
+__host__ __device__ constexpr int bf16_bq(int d) {
+  return 16 * bf16_wm(d) * kWarps;
+}
 constexpr int kBK = 64;            // KV rows per tile
 constexpr float kNeg = -1e30f;     // the TPU kernel's mask value
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kMaxD = 128;         // the bf16 kernel's largest head dim
+constexpr int kMaxD = 192;         // the bf16 kernel's largest head dim
 constexpr int kKVStages = 2;       // bf16 K and V ring depth
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -162,9 +169,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // Shared memory of the bf16 kernel for head dim d: the Q tile (reused to
-// stage O at the end) and the K and V rings, rows padded by 8 elements.
+// stage O at the end) and the K and V rings, rows padded by 8 elements
+// (D 192: (64 + 256) x 200 x 2 = 128,000 B).
 __host__ __device__ constexpr size_t bf16_smem_bytes(int d) {
-  return size_t(kBQ2 + 2 * kKVStages * kBK) * (d + 8) * sizeof(bf16);
+  return size_t(bf16_bq(d) + 2 * kKVStages * kBK) * (d + 8) * sizeof(bf16);
 }
 
 // One instantiation per head dim D (a multiple of 16), so that every loop
@@ -181,7 +189,8 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int KQ = D / 16;    // k-steps over D
   constexpr int NO = D / 8;     // output n-tiles
   constexpr int NS = kBK / 8;   // score n-tiles
-  constexpr int WM = kWM;       // m-tiles a warp
+  constexpr int WM = bf16_wm(D);   // m-tiles a warp
+  constexpr int kBQ2 = bf16_bq(D);  // query rows a block
   constexpr int KVS = kKVStages;
   constexpr int ld = D + 8;
   constexpr int d = D;
@@ -428,7 +437,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = smem;
   }
-  const dim3 grid(b * hq, (sq + kBQ2 - 1) / kBQ2);
+  constexpr int bq = bf16_bq(D);
+  const dim3 grid(b * hq, (sq + bq - 1) / bq);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), hq, group, sq, sk,
@@ -480,16 +490,22 @@ struct Fma {
   }
 };
 
+// Above D 128 P overwrites S in place (each lane reads its score row's
+// columns into registers before it writes their probabilities, and no
+// other lane touches them), which keeps D 192 at 218,112 B, under the
+// H100's 232,448 B a block; separate, S and P would need 235,520 B.
+static_assert(kLds == kBK + kPad32, "P may share S's rows only at S's stride");
 struct Layout32 {
   size_t q, k, v, s, p, o, total;
   __host__ __device__ Layout32(int d) {
     const size_t tile = align128(size_t(kBQ) * (d + kPad32) * sizeof(float));
     const size_t kvt = align128(size_t(kBK) * (d + kPad32) * sizeof(float));
+    const size_t st = align128(size_t(kBQ) * kLds * sizeof(float));
     q = 0;
     k = q + tile;
     v = k + kvt;
     s = v + kvt;
-    p = s + align128(size_t(kBQ) * kLds * sizeof(float));
+    p = d > 128 ? s : s + st;
     o = p + align128(size_t(kBQ) * (kBK + kPad32) * sizeof(float));
     total = o + align128(size_t(kBQ) * (d + 4) * sizeof(float));
   }
@@ -675,6 +691,10 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
     FLASH_BF16(96)
     FLASH_BF16(112)
     FLASH_BF16(128)
+    FLASH_BF16(144)
+    FLASH_BF16(160)
+    FLASH_BF16(176)
+    FLASH_BF16(192)
   }
 #undef FLASH_BF16
   return static_cast<int>(cudaErrorInvalidValue);

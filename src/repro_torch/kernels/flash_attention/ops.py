@@ -5,7 +5,8 @@ CUDA kernel (``csrc/flash_attention.cu``) on CUDA tensors or raises, and
 takes the plain version (``ref.py``) on CPU tensors; it never falls back
 from one to the other. In bf16 the kernel keeps each warp's scores,
 probabilities and running output in registers (``mma.sync`` tensor-core
-products, head dims up to 128); fp32 runs on the CUDA cores.
+products, head dims up to 192: MLA's expanded prefill runs 192); fp32
+runs on the CUDA cores.
 
 The gradient: the forward saves q, k and v (not the output or the
 scores); the backward recomputes attention through the plain version in

@@ -1,8 +1,30 @@
-"""Serving launcher of the port: the continuous-batching engine on
-seeded synthetic prompts.
+"""Serving launcher of the port. Two paths share one CLI, as in the JAX
+launcher:
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --engine \\
-        --arch moe-gpt3-s --requests 16
+* default: the fixed-batch loop (``legacy_loop``) over a dense
+  ``[batch, max_len]`` cache, the golden reference the engine is held
+  to: ``--requests`` batches of ``--batch`` prompts of ``--prompt-len``
+  tokens, each sequence with a budget of ``--gen // 2`` to ``--gen``
+  new tokens (numpy's Philox(123), as the JAX loop draws them) and an
+  EOS early exit (``--eos``), stopping masked on the host so finished
+  sequences re-feed their last token. Prefill ``(n, strategy)`` is
+  resolved for ``batch * prompt_len`` tokens (``MPipeMoE prefill:``
+  line); decode runs n = 1. A ``request-batch`` line a batch gives its
+  tokens and tok/s. The JAX loop draws its prompts with threefry
+  ``PRNGKey(req)``, which torch cannot reproduce: the port draws them
+  from numpy's generator seeded with ``--seed``. Flags of the engine
+  alone (``--metrics-port``, ``--trace-out``, ``--prefix-cache``,
+  ``--http-port``, ``--rate``) are an error here, as in the JAX
+  launcher.
+
+      PYTHONPATH=src python -m repro_torch.launch.serve \\
+          --arch moe-gpt3-s --batch 4 --prompt-len 16 --gen 32
+
+* ``--engine``: the continuous-batching engine on seeded synthetic
+  prompts —
+
+      PYTHONPATH=src python -m repro_torch.launch.serve --engine \\
+          --arch moe-gpt3-s --requests 16
 
 Builds the engine and calls its ``warmup()`` (the decode step captured
 on the card, every reachable prefill bucket resolved and built), as the
@@ -20,10 +42,8 @@ JAX launcher; a ``served`` line counts the requests done and cancelled
 by stage. The other engine options are ``EngineOptions``' defaults.
 Prefill ``(n, strategy)`` is resolved per bucket (``--hw``,
 ``--measure``; the JAX launcher's flags) unless ``--num-partitions N``
-fixes n. It runs on the card; ``--device cpu``
-runs it on the CPU. ``--engine`` is accepted so the JAX launcher's
-command line runs unchanged; the engine is the only serving mode
-ported.
+fixes n (``--batch`` sets its decode slots). Both paths run on the
+card; ``--device cpu`` runs them on the CPU.
 
 Three ways to feed the engine, as the JAX launcher has them:
 
@@ -86,11 +106,96 @@ def synthetic_requests(n: int, vocab: int, prompt_len: Tuple[int, int],
     return out
 
 
+def legacy_loop(args, cfg: ArchConfig, hw, params=None) -> Dict:
+    """Fixed-batch request loop over a dense ``[batch, max_len]`` cache
+    (fp32, as the JAX loop's). Returns the run's numbers: tokens, wall
+    seconds and tok/s over all batches, the decode steps and the p50 of
+    their wall ms (the step and the host read of its tokens), and the
+    resolved ``(n, strategy)``. ``params`` (compute dtype) are served in
+    place of weights drawn from ``--seed``."""
+    import time
+
+    import torch
+
+    from repro_torch.core.selector import resolve
+    from repro_torch.device import resolve_device
+    from repro_torch.models import lm
+
+    batch, plen, gen = args.batch or 4, int(args.prompt_len), int(args.gen)
+    if cfg.moe is not None:
+        # concrete (n, strategy) for the prefill token count; decode
+        # itself always runs n = 1 (pipeline_moe._resolve_partitions)
+        cfg = resolve(cfg, local_tokens=batch * plen, ep_size=1, hw=hw)
+        print(f"MPipeMoE prefill: n={cfg.moe.num_partitions} "
+              f"strategy={cfg.moe.memory_reuse_strategy}", flush=True)
+    dev = resolve_device(args.device)
+    if params is None:
+        params = lm.init_compute(cfg, args.seed, device=dev)
+    max_len = plen + gen
+    prompts = np.random.default_rng(args.seed)
+    budgets = np.random.Generator(np.random.Philox(key=123))
+    tokens = 0
+    wall = 0.0
+    step_ms: List[float] = []
+    with torch.no_grad():
+        for req in range(args.requests):
+            toks = torch.from_numpy(prompts.integers(
+                0, cfg.vocab_size, size=(batch, plen))).to(dev)
+            # per-sequence generation budget (<= --gen); EOS stops earlier
+            max_new = budgets.integers(max(1, gen // 2), gen + 1,
+                                       size=batch)
+            t0 = time.perf_counter()
+            logits, cache = lm.prefill(params, toks, cfg, max_len=max_len,
+                                       dtype=torch.float32)
+            tok = logits[:, -1:].argmax(-1)
+            last = tok[:, 0].cpu().numpy()
+            done = np.zeros(batch, bool)
+            n_gen = np.ones(batch, np.int64)
+            if args.eos >= 0:
+                done |= last == args.eos
+            done |= n_gen >= max_new
+            steps = 1
+            while not done.all() and steps < gen:
+                ts = time.perf_counter()
+                logits, cache = lm.decode_step(params, cache, tok, cfg)
+                # masked stop: finished sequences keep re-feeding their
+                # last token, so the step's shapes never change
+                keep = torch.from_numpy(done).to(dev)[:, None]
+                tok = torch.where(keep, tok, logits.argmax(-1)[:, None])
+                last = tok[:, 0].cpu().numpy()
+                step_ms.append((time.perf_counter() - ts) * 1e3)
+                n_gen += ~done
+                if args.eos >= 0:
+                    done |= last == args.eos
+                done |= n_gen >= max_new
+                steps += 1
+            dt = time.perf_counter() - t0
+            total = int(n_gen.sum())
+            tokens += total
+            wall += dt
+            print(f"request-batch {req}: {batch} seqs x ({plen} prompt + "
+                  f"<= {gen} gen) {total} tokens in {dt * 1e3:.0f}ms -> "
+                  f"{total / dt:.1f} tok/s (stopped early: "
+                  f"{int(done.sum())})", flush=True)
+    return {"arch": cfg.name, "batch": batch, "requests": args.requests,
+            "tokens_generated": tokens, "wall_s": wall,
+            "tok_per_s": tokens / wall if wall else 0.0,
+            "decode_steps": len(step_ms),
+            "p50_decode_step_ms": (float(np.median(step_ms)) if step_ms
+                                   else 0.0),
+            "num_partitions": (cfg.moe.num_partitions if cfg.moe else None),
+            "strategy": (cfg.moe.memory_reuse_strategy if cfg.moe
+                         else None)}
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--engine", action="store_true",
-                    help="the continuous-batching engine (the only mode "
-                         "ported; accepted as the JAX launcher takes it)")
+                    help="the continuous-batching engine (default: the "
+                         "fixed-batch loop over a dense cache)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="fixed-batch loop: sequences a batch (default 4); "
+                         "engine: decode slots (default: EngineOptions')")
     ap.add_argument("--arch", default="moe-gpt3-s")
     ap.add_argument("--reduced", action="store_true",
                     help="the config's tiny same-family reduction")
@@ -121,10 +226,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "a prompt prefix skip its prefill (copy-on-write "
                          "where they part, LRU eviction under pressure)")
     ap.add_argument("--requests", type=int, default=4)
-    ap.add_argument("--prompt-len", default="16:64",
-                    help="prompt length, N or LO:HI")
-    ap.add_argument("--gen", default="16:32",
-                    help="new tokens per request, N or LO:HI")
+    ap.add_argument("--prompt-len", default=None,
+                    help="prompt length: engine N or LO:HI (default "
+                         "16:64); fixed-batch loop N (default 16)")
+    ap.add_argument("--gen", default=None,
+                    help="new tokens per request: engine N or LO:HI "
+                         "(default 16:32); fixed-batch loop the largest "
+                         "budget N (default 32)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the weights and the prompts")
     ap.add_argument("--device", default=None,
@@ -236,13 +344,35 @@ def _ingress(engine, args, stop: Optional[threading.Event],
 
 def main(argv: Optional[Sequence[str]] = None, *,
          stop: Optional[threading.Event] = None,
-         on_ingress: Optional[Callable] = None) -> Dict:
+         on_ingress: Optional[Callable] = None, params=None) -> Dict:
     """Runs the launcher; returns ``stats()`` (with ``arch``, and
-    ``wall_s`` for a replay). With ``--http-port``, ``stop`` (an event)
-    ends the serving loop as ^C does, and ``on_ingress(server)`` runs
-    once it listens."""
+    ``wall_s`` for a replay), or the fixed-batch loop's numbers. With
+    ``--http-port``, ``stop`` (an event) ends the serving loop as ^C
+    does, and ``on_ingress(server)`` runs once it listens. ``params``
+    (the config's weights in its compute dtype) are served in place of
+    weights drawn from ``--seed``."""
     ap = build_parser()
     args = ap.parse_args(argv)
+    if not args.engine:
+        # the JAX launcher's rules: the engine's flags need --engine
+        for flag, given in (
+                ("--metrics-port / --trace-out",
+                 args.metrics_port >= 0 or args.trace_out),
+                ("--prefix-cache", args.prefix_cache != "off"),
+                ("--http-port", args.http_port >= 0),
+                ("--rate", args.rate is not None)):
+            if given:
+                ap.error(f"{flag}: a flag of the continuous-batching "
+                         f"engine; add --engine")
+        args.prompt_len = args.prompt_len or "16"
+        args.gen = args.gen or "32"
+        for flag, text in (("--prompt-len", args.prompt_len),
+                           ("--gen", args.gen)):
+            if ":" in text:
+                ap.error(f"the fixed-batch loop takes one {flag} N, "
+                         f"got {text}")
+    args.prompt_len = args.prompt_len or "16:64"
+    args.gen = args.gen or "16:32"
     if args.http_port < 0 and (args.shed_policy != "reject"
                                or args.admission_queue != 8):
         ap.error("--shed-policy / --admission-queue configure the HTTP "
@@ -257,12 +387,17 @@ def main(argv: Optional[Sequence[str]] = None, *,
     cfg = configure(args)
     hw = resolve_hw(args.hw)
     print(f"hw spec: {hw.name}", flush=True)
+    if not args.engine:
+        s = legacy_loop(args, cfg, hw, params)
+        print(json.dumps(s, sort_keys=True))
+        return s
     obs = Recorder(tracer=Tracer()) if args.trace_out else Recorder()
     opts = EngineOptions(
         device=args.device, hw=hw, measure=args.measure,
         preempt=args.preempt, num_pages=args.num_pages,
         prefix_cache=args.prefix_cache,
-        adaptive=args.num_partitions is None, obs=obs)
+        adaptive=args.num_partitions is None, obs=obs,
+        **({} if args.batch is None else {"max_slots": args.batch}))
     sampling = None
     if args.temperature > 0:
         sampling = SamplingParams(temperature=args.temperature,
@@ -288,9 +423,10 @@ def main(argv: Optional[Sequence[str]] = None, *,
                 prompt_max=_range(args.prompt_len)[1],
                 gen_max=_range(args.gen)[1], seed=args.seed, eos_id=eos,
                 time_scale=args.time_scale, sampling=sampling,
-                on_engine=on_engine, weights_seed=args.seed)
+                on_engine=on_engine, weights_seed=args.seed,
+                params=params)
         else:
-            engine = Engine(cfg, options=opts, seed=args.seed)
+            engine = Engine(cfg, params, options=opts, seed=args.seed)
             print(f"warmup: {engine.warmup()} programs built", flush=True)
             on_engine(engine)
             if args.http_port >= 0:

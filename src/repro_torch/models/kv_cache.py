@@ -1,6 +1,18 @@
-"""Paged KV pools for the serving engine (``repro_torch.serve``).
+"""Decode caches: the dense per-sequence cache of ``lm.prefill`` /
+``lm.decode_step`` and the paged KV pools of the serving engine
+(``repro_torch.serve``), as ``repro.models.kv_cache``.
 
-The counterpart of the paged half of ``repro.models.kv_cache``: per
+Dense: per attention layer ``k``/``v`` ``[batch, T, kv_heads, head_dim]``
+(T = ``max_len``, or ``min(window, max_len)`` for a sliding-window layer,
+a ring buffer once full) or, for MLA, the latent ``c_kv`` ``[batch,
+max_len, kv_lora_rank]`` and the rotated key ``k_rope`` ``[batch,
+max_len, rope_head_dim]``, with ``len``, the tokens cached. ``len`` (and
+``lm.init_cache``'s ``pos``) is a host int where the JAX package keeps an
+int32 scalar: every sequence of the batch is at the same position, so
+the fixed-batch loop advances it without reading the device.
+``cache_bytes`` counts each such int as the 4 bytes of JAX's scalar.
+
+Paged: the counterpart of the paged half of the JAX module: per
 attention layer a global pool ``[num_pages, page_size, kv_heads,
 head_dim]`` for K and one for V (MLA: the latent ``c_kv`` ``[num_pages,
 page_size, kv_lora_rank]`` and the shared rotary key ``[num_pages,
@@ -10,8 +22,8 @@ the reserved write sink for masked (padding / inactive-slot) writes.
 Everything past the page axis is trailing-dim generic, so the page
 allocator does not know which kind of pool it serves.
 
-Unlike JAX, which returns new pools from every scatter, the port updates
-the pools **in place** (``scatter_pages`` writes into the tensor it is
+Unlike JAX, which returns new caches from every update, the port updates
+the dense caches and the pools **in place** (``scatter_pages`` writes into the tensor it is
 given and returns it): the pools are the engine's largest allocation
 and a copy per step would double it. The swap-in of preempt-by-offload
 (``insert_pages``) and the prefix cache's copy-on-write
@@ -27,6 +39,46 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.module import leaves
+
+
+def layer_cache(cfg: ArchConfig, role: Dict, batch: int, max_len: int,
+                dtype=torch.bfloat16, device="cpu") -> Dict:
+    """The zero-filled dense cache of one attention layer (recurrent
+    mixers' state comes with ROADMAP.md's 'Other architectures' slice)."""
+    a = cfg.attn
+    if role["mixer"] != "attn":
+        raise NotImplementedError(
+            f"mixer {role['mixer']!r} comes with ROADMAP.md's 'Other "
+            f"architectures' slice")
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if a.mla is not None:
+        m = a.mla
+        return {"c_kv": zeros(batch, max_len, m.kv_lora_rank),
+                "k_rope": zeros(batch, max_len, m.rope_head_dim), "len": 0}
+    window = 0 if (role["global_attn"] and a.global_period > 1) \
+        else a.window
+    t = min(window, max_len) if window > 0 else max_len
+    kd = (batch, t, a.num_kv_heads, cfg.head_dim)
+    return {"k": zeros(*kd), "v": zeros(*kd), "len": 0}
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cpu") -> List[dict]:
+    """One ``{"l{i}": layer_cache}`` dict per period (the JAX package
+    stacks them on a leading period axis)."""
+    roles = cfg.layer_roles()
+    return [{f"l{i}": layer_cache(cfg, role, batch, max_len, dtype, device)
+             for i, role in enumerate(roles)}
+            for _ in range(cfg.num_periods)]
+
+
+def cache_bytes(cache) -> int:
+    """Bytes of a dense cache tree, as the JAX package's ``cache_bytes``:
+    each tensor's, and 4 for each host int (JAX's int32 scalars)."""
+    return sum(4 if isinstance(x, int) else x.numel() * x.element_size()
+               for x in leaves(cache))
 
 
 def paged_layer_pool(cfg: ArchConfig, role: Dict, num_pages: int,

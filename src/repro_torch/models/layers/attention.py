@@ -1,7 +1,6 @@
-"""Attention over the paged KV cache: GQA/MHA, sliding windows, chunked
-prefill and batched decode.
-
-The counterpart of the paged half of ``repro.models.layers.attention``:
+"""Attention: GQA/MHA with sliding windows and MLA, over the dense
+per-sequence cache (``lm.prefill`` / ``lm.decode_step``) or the paged KV
+pools of the serving engine, as ``repro.models.layers.attention``:
 
 * ``flash_attention`` is the JAX package's blockwise online-softmax
   attention as a plain PyTorch function (prefill chunks, with
@@ -17,13 +16,20 @@ The counterpart of the paged half of ``repro.models.layers.attention``:
   absorbed form (q projected into the latent space): decode through the
   hand-written MLA kernel when ``attn_kernel == "kernel"``, chunked
   prefill always through the gathered einsums, as in the JAX package.
-  Without a cache (``mode="train"``) it runs causal attention through
+* Over a dense cache (``_fill_cache`` / ``_append_cache``, a ring
+  buffer of ``window`` slots for a windowed layer) and without a cache
+  (``mode="train"``), prefill and train run causal attention through
   the hand-written ``flash_attention`` kernel
   (``repro_torch.kernels.flash_attention``; its plain version on the
   CPU), where the JAX package runs its jnp ``flash_attention``: the two
-  compute the same function. Chunked prefill keeps the blockwise
-  ``flash_attention`` below, which takes ``q_offset``; the kernel does
-  not.
+  compute the same function. Dense decode attends through the plain
+  ``decode_attention``, as JAX's dense decode is jnp outside any Pallas
+  kernel; it also keeps the token oracle (``serve.trace``) independent
+  of the paged kernels it checks. MLA's dense path (``_apply_mla``)
+  prefills in the expanded form through the flash kernel at head dim
+  ``nope + rope`` (v padded to it) and decodes in the absorbed form.
+  Chunked paged prefill keeps the blockwise ``flash_attention`` below,
+  which takes ``q_offset``; the kernel does not.
 
 Scores, softmax and the PV sum are fp32 whatever the compute dtype (the
 JAX package's ``preferred_element_type=float32``); ``NEG_INF`` is only
@@ -159,10 +165,14 @@ def decode_attention(q, k, v, cache_len, *, window: int = 0,
     g = hq // kv_heads
     qe = q.reshape(b, kv_heads, g, d).float()
     s_ = torch.einsum("bkgd,btkd->bkgt", qe, k.float()) * (d ** -0.5)
-    cl = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
     idx = torch.arange(t, device=q.device)[None, :]
+    if isinstance(cache_len, int):        # the dense cache's host length
+        cl = cache_len
+    else:
+        cl = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
     if ring:
-        valid = idx < torch.clamp(cl, max=t)
+        valid = idx < (min(cl, t) if isinstance(cl, int)
+                       else torch.clamp(cl, max=t))
     else:
         valid = idx < cl
         if window > 0:
@@ -271,58 +281,105 @@ def _apply_mla_paged(params, x, *, cfg: ArchConfig, positions, cache: dict):
     return out, new_cache
 
 
-def _apply_train(params, x, *, cfg: ArchConfig, window: int):
-    """Paged-free causal self-attention: projections, the flash kernel
-    (GQA through its ``h // group``, no repeat), the output projection."""
+def _fill_cache(cache, k, v, window: int):
+    """Prefill's K/V into a fresh dense cache, in place; absolute position
+    p of a ring buffer (``window`` slots) lives at slot ``p % window``."""
+    t = cache["k"].shape[1]
+    s = k.shape[1]
+    if window > 0 and t == window and s >= window:
+        k = torch.roll(k[:, -window:], s % window, dims=1)
+        v = torch.roll(v[:, -window:], s % window, dims=1)
+    cache["k"][:, :k.shape[1]] = k
+    cache["v"][:, :v.shape[1]] = v
+    return {"k": cache["k"], "v": cache["v"], "len": s}
+
+
+def _append_cache(cache, k, v, window: int):
+    """One decode step's K/V at ``len`` (a ring buffer: ``len % window``),
+    in place. Past the end it overwrites the last slot, as JAX's clamped
+    ``dynamic_update_slice`` does."""
+    t = cache["k"].shape[1]
+    pos = cache["len"]
+    slot = pos % t if window > 0 and t == window else min(pos, t - 1)
+    cache["k"][:, slot] = k[:, 0]
+    cache["v"][:, slot] = v[:, 0]
+    return {"k": cache["k"], "v": cache["v"], "len": pos + 1}
+
+
+def _apply_mla(params, x, *, cfg: ArchConfig, positions, mode: str,
+               cache: Optional[dict]):
+    """MLA over a dense latent cache (``c_kv``, ``k_rope``, ``len``).
+
+    Prefill runs the expanded form: per-head K and V from the latent,
+    causal attention through the flash kernel at head dim ``nope + rope``
+    (v zero-padded to it, the output sliced back to ``v_head_dim``, so
+    the kernel's ``d ** -0.5`` is MLA's scale), and the latents written
+    into the cache in place. Decode runs the absorbed form over the
+    cache: ``q_abs = q_nope . w_uk``, fp32 scores against the latents
+    rounded to the compute dtype, the context in fp32 over the cache as
+    it is, as the JAX package does."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
-    q, k, v = _proj_qkv(params, x, cfg)
-    out = fa(q, k, v, causal=True, window=window)
-    return torch.einsum("bshe,hed->bsd", out, params["w_o"].to(x.dtype))
-
-
-def apply(params, x, *, cfg: ArchConfig, positions, is_global: bool = True,
-          mode: str = "prefill", cache: Optional[dict] = None):
-    """Self-attention. Returns (out, new_cache).
-
-    ``mode="train"`` with no cache: causal attention over ``x`` through
-    the flash kernel; ``new_cache`` is None. Otherwise, attention over a
-    paged KV pool (``repro_torch.serve``):
-
-    ``cache``: ``k_pool``/``v_pool`` ``[P, ps, Kv, D]`` (MLA:
-    ``ckv_pool``/``kr_pool``, see ``_apply_mla_paged``), ``page_table``
-    ``[B, NP]``, ``lens`` ``[B]`` (tokens already cached per sequence),
-    optionally ``write_valid`` ``[B, S]`` and ``write_sink`` ``[B]``,
-    and ``attn_kernel``: ``"kernel"`` (decode through the CUDA
-    paged-decode kernel) or ``"gather"``; anything else raises. The pools
-    are updated in place and returned as the new cache.
-
-    Decode (S == 1) runs every slot with its own cache length; chunked
-    prefill (S > 1) requires B == 1 and attends the chunk against the
-    gathered pages with ``q_offset = lens[0]``.
-    """
-    if cache is not None and "ckv_pool" in cache:
-        return _apply_mla_paged(params, x, cfg=cfg, positions=positions,
-                                cache=cache)
-    a = cfg.attn
-    if a.mla is not None:
+    if mode == "train":
         raise NotImplementedError(
-            "MLA runs over paged latent pools only; its train path "
-            "(_apply_mla) comes with ROADMAP.md's 'Other architectures' "
-            "slice")
-    _check_positional(cfg)
-    window = 0 if (is_global and a.global_period > 1) else a.window
-    if cache is None:
-        if mode != "train":
-            raise NotImplementedError(
-                "dense (non-paged) KV caches come with ROADMAP.md's later "
-                "slices; the port runs train without a cache and serves "
-                "over paged pools")
-        return _apply_train(params, x, cfg=cfg, window=window), None
-    if "k_pool" not in cache:
-        raise NotImplementedError(
-            "the port's serving attention runs over paged caches only")
+            "MLA training (_apply_mla's gradients and a launcher) is "
+            "ROADMAP.md Queue 1 item 4; its expanded forward runs in "
+            "prefill")
+    a, m = cfg.attn, cfg.attn.mla
+    dt = x.dtype
     s = x.shape[1]
+    q_nope, q_rope = _mla_q(params, x, cfg)
+    if mode == "decode":
+        pos = cache["len"]
+        positions = torch.full((1, 1), pos, dtype=torch.long,
+                               device=x.device)
+    q_rope = rope_lib.apply_rope(q_rope, positions, a.rope_theta)
+    c_kv = torch.einsum("bsd,dr->bsr", x, params["w_dkv"].to(dt))
+    k_rope = torch.einsum("bsd,dr->bsr", x, params["w_kr"].to(dt))
+    k_rope = rope_lib.apply_rope(k_rope[:, :, None, :], positions,
+                                 a.rope_theta)[:, :, 0, :]
 
+    if mode == "prefill":
+        k_nope = torch.einsum("bsr,rhe->bshe", c_kv, params["w_uk"].to(dt))
+        v = torch.einsum("bsr,rhe->bshe", c_kv, params["w_uv"].to(dt))
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            k_nope.shape[:3] + (m.rope_head_dim,))], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        qk_dim = m.nope_head_dim + m.rope_head_dim
+        vpad = F.pad(v, (0, qk_dim - m.v_head_dim))
+        out = fa(q, k, vpad, causal=True)[..., :m.v_head_dim]
+        new_cache = None
+        if cache is not None:
+            cache["c_kv"][:, :s] = c_kv
+            cache["k_rope"][:, :s] = k_rope
+            new_cache = {"c_kv": cache["c_kv"], "k_rope": cache["k_rope"],
+                         "len": s}
+    else:
+        pos = cache["len"]
+        ckv_c, kr_c = cache["c_kv"], cache["k_rope"]
+        ckv_c[:, pos:pos + 1] = c_kv
+        kr_c[:, pos:pos + 1] = k_rope
+        new_cache = {"c_kv": ckv_c, "k_rope": kr_c, "len": pos + 1}
+        q_abs = torch.einsum("bshe,rhe->bshr", q_nope, params["w_uk"].to(dt))
+        s_ = (torch.einsum("bshr,btr->bhst", q_abs.float(),
+                           ckv_c.to(dt).float())
+              + torch.einsum("bshe,bte->bhst", q_rope.float(),
+                             kr_c.to(dt).float()))
+        s_ = s_ * ((m.nope_head_dim + m.rope_head_dim) ** -0.5)
+        valid = torch.arange(ckv_c.shape[1], device=x.device) < pos + 1
+        s_ = torch.where(valid, s_, NEG_INF)
+        p = torch.softmax(s_, dim=-1)
+        ctx = torch.einsum("bhst,btr->bshr", p, ckv_c.float())
+        out = torch.einsum("bshr,rhe->bshe", ctx.to(dt),
+                           params["w_uv"].to(dt))
+    out = torch.einsum("bshe,hed->bsd", out, params["w_o"].to(dt))
+    return out, new_cache
+
+
+def _apply_paged(params, x, *, cfg: ArchConfig, positions, window: int,
+                 cache: dict):
+    """GQA over a paged KV pool; see ``apply``."""
+    a = cfg.attn
+    s = x.shape[1]
     q, k, v = _proj_qkv(params, x, cfg)
     valid = cache.get("write_valid")
     sink = cache.get("write_sink")
@@ -359,3 +416,56 @@ def apply(params, x, *, cfg: ArchConfig, positions, is_global: bool = True,
                                   q_offset=cache["lens"][0])
     out = torch.einsum("bshe,hed->bsd", out, params["w_o"].to(x.dtype))
     return out, new_cache
+
+
+def apply(params, x, *, cfg: ArchConfig, positions, is_global: bool = True,
+          mode: str = "prefill", cache: Optional[dict] = None):
+    """Self-attention. Returns (out, new_cache).
+
+    Over a paged KV pool (``repro_torch.serve``): ``cache`` holds
+    ``k_pool``/``v_pool`` ``[P, ps, Kv, D]`` (MLA:
+    ``ckv_pool``/``kr_pool``, see ``_apply_mla_paged``), ``page_table``
+    ``[B, NP]``, ``lens`` ``[B]`` (tokens already cached per sequence),
+    optionally ``write_valid`` ``[B, S]`` and ``write_sink`` ``[B]``,
+    and ``attn_kernel``: ``"kernel"`` (decode through the CUDA
+    paged-decode kernel) or ``"gather"``; anything else raises. The pools
+    are updated in place and returned as the new cache. Decode (S == 1)
+    runs every slot with its own cache length; chunked prefill (S > 1)
+    requires B == 1 and attends the chunk against the gathered pages
+    with ``q_offset = lens[0]``.
+
+    Otherwise over a dense cache (``models/kv_cache.layer_cache``; MLA:
+    ``_apply_mla``), or none: ``"train"`` and ``"prefill"`` attend over
+    ``x`` through the flash kernel, prefill also filling the cache;
+    ``"decode"`` appends one token at ``cache["len"]`` and attends over
+    the cache with ``decode_attention``. The cache is updated in place
+    and returned as the new cache (None without one).
+    """
+    if cache is not None and "ckv_pool" in cache:
+        return _apply_mla_paged(params, x, cfg=cfg, positions=positions,
+                                cache=cache)
+    a = cfg.attn
+    if a.mla is not None:
+        return _apply_mla(params, x, cfg=cfg, positions=positions,
+                          mode=mode, cache=cache)
+    _check_positional(cfg)
+    window = 0 if (is_global and a.global_period > 1) else a.window
+    if cache is not None and "k_pool" in cache:
+        return _apply_paged(params, x, cfg=cfg, positions=positions,
+                            window=window, cache=cache)
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    q, k, v = _proj_qkv(params, x, cfg)
+    if mode in ("train", "prefill"):
+        new_cache = None
+        if mode == "prefill" and cache is not None:
+            new_cache = _fill_cache(cache, k, v, window)
+        out = fa(q, k, v, causal=True, window=window)
+    elif mode == "decode":
+        new_cache = _append_cache(cache, k, v, window)
+        ring = window > 0 and new_cache["k"].shape[1] == window
+        out = decode_attention(q, new_cache["k"], new_cache["v"],
+                               new_cache["len"], window=window, ring=ring)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    return torch.einsum("bshe,hed->bsd", out, params["w_o"].to(x.dtype)), \
+        new_cache

@@ -1,12 +1,13 @@
-"""Decoder-only language model: init, the training forward and loss, and
-the paged forward with its two serving steps, as ``repro.models.lm``.
+"""Decoder-only language model: init, the training forward and loss, the
+dense-cache forward with ``prefill`` / ``decode_step`` and the paged
+forward with its two serving steps, as ``repro.models.lm``.
 
 Depth is a Python loop over the layer periods (JAX scans a stacked
 ``periods`` axis). Parameters keep the JAX package's layouts, with the
 ``periods`` axis unstacked into a list — ``repro_torch.convert`` turns a
-JAX tree into this one by slicing. The paged pools are updated in
-place; ``decode_step_paged`` and ``prefill_chunk_paged`` still return
-them, so the call sites read like the JAX package's.
+JAX tree into this one by slicing. Dense caches and paged pools are
+updated in place; the steps still return them, so the call sites read
+like the JAX package's.
 """
 from __future__ import annotations
 
@@ -138,45 +139,59 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig, *,
     positions 0..S-1, each period under ``cfg.remat_policy``, each MoE
     chunk under the config's strategy; ``new_cache`` is None.
 
-    Otherwise, over a paged ``cache``: ``layers`` (the per-period
-    pools), ``page_table``, ``lens``, ``attn_kernel`` (``"kernel"`` or
-    ``"gather"``), and optionally ``write_valid``, ``write_sink``."""
-    if cache is None:
-        if mode != "train":
-            raise NotImplementedError(
-                "dense (non-paged) KV caches are not ported; the port "
-                "trains without a cache and serves over paged pools")
+    Over a paged ``cache``: ``layers`` (the per-period pools),
+    ``page_table``, ``lens``, ``attn_kernel`` (``"kernel"`` or
+    ``"gather"``), and optionally ``write_valid``, ``write_sink``;
+    ``new_cache`` is ``{"layers"}``.
+
+    Over a dense ``cache`` (``init_cache``: ``layers`` and ``pos``):
+    ``"prefill"`` runs the prompt at positions 0..S-1 and fills the
+    cache, ``"decode"`` one token per sequence at ``pos``; ``new_cache``
+    is ``{"layers", "pos"}`` with ``pos`` advanced. ``"prefill"`` without
+    a cache returns the logits only. The MoE layers run decode at n = 1
+    and prefill at the config's n, as in the JAX package."""
+    if cache is None and mode == "train":
         return _forward_train(params, tokens, cfg)
-    if "page_table" not in cache:
-        raise NotImplementedError(
-            "the port's serving forward runs over paged caches only")
+    if cache is None and mode != "prefill":
+        raise ValueError(f"mode {mode!r} needs a cache")
     dt = dtype_of(cfg.compute_dtype)
-    lens = cache["lens"]
+    paged = cache is not None and "page_table" in cache
+    b = tokens.shape[0]
 
     if mode == "decode":
-        positions = lens[:, None].long()                  # per-slot [B, 1]
+        if paged:
+            positions = cache["lens"][:, None].long()     # per-slot [B, 1]
+        else:
+            positions = torch.full((b, 1), cache["pos"], dtype=torch.long,
+                                   device=tokens.device)
         x = embedding.embed(params["embed"], tokens, cfg,
                             positions=positions, dtype=dt)
     else:
         x = embedding.embed(params["embed"], tokens, cfg, dtype=dt)
         s = x.shape[1]
         base = torch.arange(s, device=x.device)[None, :]
-        positions = lens[:, None].long() + base           # chunk at offset
+        if paged:                                         # chunk at offset
+            positions = cache["lens"][:, None].long() + base
+        else:
+            positions = base.expand(b, s)
         if cfg.positional == "learned":
             x = x + params["embed"]["pos"][positions[0]].to(dt)[None]
 
     shared_kv = {k: cache.get(k) for k in ("page_table", "lens",
                                            "write_valid", "write_sink",
                                            "attn_kernel")
-                 if cache.get(k) is not None}
+                 if cache.get(k) is not None} if paged else {}
     roles = cfg.layer_roles()
     aux = {"aux_loss": torch.zeros((), device=x.device),
            "z_loss": torch.zeros((), device=x.device)}
+    layers = (cache["layers"] if cache is not None
+              else [None] * cfg.num_periods)
     new_layers = []
-    for pparams, pcache in zip(params["periods"], cache["layers"]):
+    for pparams, pcache in zip(params["periods"], layers):
         new_pcache = {}
         for i, role in enumerate(roles):
-            lcache = dict(pcache[f"l{i}"], **shared_kv)
+            lcache = (None if pcache is None
+                      else dict(pcache[f"l{i}"], **shared_kv))
             x, a, nc = blocks.block_apply(
                 pparams[f"l{i}"], x, cfg=cfg, role=role,
                 positions=positions, mode=mode, cache=lcache)
@@ -187,7 +202,12 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig, *,
 
     x = norm.apply(params["final_norm"], x, cfg.norm)
     logits = embedding.logits(params["embed"], x, cfg)
-    return logits, aux, {"layers": new_layers}
+    if cache is None:
+        return logits, aux, None
+    if paged:
+        return logits, aux, {"layers": new_layers}
+    pos = cache["pos"] + 1 if mode == "decode" else x.shape[1]
+    return logits, aux, {"layers": new_layers, "pos": pos}
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
@@ -216,6 +236,38 @@ def loss_fn(params, batch: dict, cfg: ArchConfig):
     loss = ce + aux["aux_loss"] + aux["z_loss"]
     return loss, {"ce": ce, "aux_loss": aux["aux_loss"],
                   "z_loss": aux["z_loss"], "loss": loss}
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, *, device=None) -> dict:
+    """A zero-filled dense cache of ``batch`` sequences of up to
+    ``max_len`` tokens: ``{"layers": [per period], "pos": 0}``, on
+    ``device`` (default ``cuda``; raises without CUDA unless
+    ``device="cpu"``)."""
+    return {"layers": kv_cache.init_cache(cfg, batch, max_len, dtype,
+                                          resolve_device(device)),
+            "pos": 0}
+
+
+def decode_step(params, cache: dict, tokens: torch.Tensor,
+                cfg: ArchConfig):
+    """One token per sequence over a dense cache: tokens ``[B, 1]`` ->
+    (logits ``[B, vocab]``, cache — updated in place, ``pos`` + 1)."""
+    logits, _, new_cache = forward(params, tokens, cfg, mode="decode",
+                                   cache=cache)
+    return logits[:, -1], new_cache
+
+
+def prefill(params, tokens: torch.Tensor, cfg: ArchConfig, max_len: int,
+            dtype=torch.bfloat16):
+    """The prompts ``[B, S]`` into a fresh dense cache of ``max_len``
+    tokens (in ``dtype``, on the tokens' device). Returns (logits ``[B,
+    S, vocab]``, cache with ``pos`` = S)."""
+    cache = init_cache(cfg, tokens.shape[0], max_len, dtype,
+                       device=tokens.device)
+    logits, _, new_cache = forward(params, tokens, cfg, mode="prefill",
+                                   cache=cache)
+    return logits, new_cache
 
 
 def init_paged_cache(cfg: ArchConfig, num_pages: int, page_size: int,

@@ -23,7 +23,8 @@
 ``adaptive.py``    prefill bucketing and per-bucket adaptive
                    (n, strategy): :class:`PrefillBucketAdaptive`
 ``trace.py``       :class:`TraceEntry`, ``poisson_trace`` (bit-equal to
-                   the JAX package's), ``replay``, ``run_poisson``
+                   the JAX package's), ``replay``, ``run_poisson``,
+                   ``dense_greedy_reference`` (the token oracle)
 ``ingress.py``     :class:`IngressServer` (HTTP/SSE over an engine
                    thread; disconnect -> ``Engine.cancel``; reject or
                    degrade shedding), :class:`IngressClient`
@@ -40,11 +41,12 @@ from repro_torch.serve.request import Request, RequestState
 from repro_torch.serve.sampling import SamplingParams, sample_tokens
 from repro_torch.serve.scheduler import Scheduler
 from repro_torch.serve.state_cache import StateCache
-from repro_torch.serve.trace import (TraceEntry, poisson_trace, replay,
-                                     run_poisson)
+from repro_torch.serve.trace import (TraceEntry, dense_greedy_reference,
+                                     poisson_trace, replay, run_poisson)
 
 __all__ = ["PREFIX_CACHE_MODES", "SHED_POLICIES", "Engine", "EngineOptions",
            "IngressClient", "IngressOptions", "IngressServer",
            "PagedKVCache", "Request", "RequestState", "SamplingParams",
            "Scheduler", "StateCache", "StreamResult", "TraceEntry",
-           "poisson_trace", "replay", "run_poisson", "sample_tokens"]
+           "dense_greedy_reference", "poisson_trace", "replay",
+           "run_poisson", "sample_tokens"]

@@ -1,4 +1,5 @@
-"""Synthetic request traces and their replay, as ``repro.serve.trace``.
+"""Synthetic request traces, their replay and the dense greedy token
+oracle, as ``repro.serve.trace``.
 
 Poisson arrivals (exponential inter-arrival gaps at ``rate`` req/s) with
 log-uniform-ish prompt lengths and uniform generation lengths, drawn from
@@ -10,9 +11,9 @@ the same requests on either package.
 latency clocks starting at each request's *scheduled* arrival;
 ``run_poisson`` builds an engine, warms it up and replays a trace, the
 shared body of the serving launcher's ``--rate`` path and of
-``chip_smoke.py``'s replay. The JAX module's ``dense_greedy_reference``
-needs the dense-cache decode path, which the port does not have yet
-(``models/lm.py`` raises for it; ROADMAP.md Queue 1).
+``chip_smoke.py``'s replay. ``dense_greedy_reference`` decodes one
+request at a time over a dense cache: the token oracle the paged,
+batched, captured and preemptive engine is held to.
 """
 from __future__ import annotations
 
@@ -22,7 +23,33 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
-__all__ = ["TraceEntry", "poisson_trace", "replay", "run_poisson"]
+__all__ = ["TraceEntry", "dense_greedy_reference", "poisson_trace",
+           "replay", "run_poisson"]
+
+
+def dense_greedy_reference(params, cfg, prompt, max_new: int) -> List[int]:
+    """Golden reference: prefill into a dense fp32 cache, then greedy
+    decode, one request at a time (the fixed-batch loop at batch 1), on
+    the device the weights live on. The token-exactness oracle the
+    engine is held to; it shares no attention kernel with the engine's
+    decode (dense decode attends in plain PyTorch)."""
+    import torch
+
+    from repro_torch.models import lm
+
+    dev = params["embed"]["tok"].device
+    toks = torch.as_tensor(np.asarray(prompt, np.int64)[None, :],
+                           device=dev)
+    with torch.no_grad():
+        logits, cache = lm.prefill(params, toks, cfg,
+                                   max_len=len(prompt) + max_new,
+                                   dtype=torch.float32)
+        out = [int(logits[0, -1].argmax())]
+        for _ in range(max_new - 1):
+            tok = torch.tensor([[out[-1]]], device=dev)
+            lg, cache = lm.decode_step(params, cache, tok, cfg)
+            out.append(int(lg[0].argmax()))
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

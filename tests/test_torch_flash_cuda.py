@@ -7,8 +7,8 @@ within ``ref.tolerance`` per element (1e-5 in fp32; in bf16 one output
 rounding plus the bf16 rounding of the probabilities, weighted by |v|).
 The cases cover sequence lengths 1, 17, 200 and 1024 (a single query,
 ragged tiles, several tiles, the training shape), every head dim the
-bf16 kernel is built for (32 to 128 here, 16 in
-``test_torch_train_cuda.py``), causal and not, sliding windows, GQA,
+bf16 kernel is built for up to 128 (32 to 128 here, 16 in
+``test_torch_train_cuda.py``; 144 to 192 in ``test_torch_dense_cuda.py``), causal and not, sliding windows, GQA,
 Sq != Sk, and a q that is a strided view into a packed qkv tensor. Rows
 that see no key at all are not among them: there the kernel and the
 plain version average different sets of keys. This file imports neither
@@ -99,6 +99,6 @@ def test_flash_kernel_takes_strided_views(dtype):
 def test_flash_kernel_rejects_wide_heads_in_bf16():
     _cuda()
     from repro_torch.kernels.flash_attention import flash_attention
-    q = _randn((1, 16, 2, 144), 1, torch.bfloat16)
-    with pytest.raises(ValueError, match="head dims up to 128"):
+    q = _randn((1, 16, 2, 208), 1, torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims up to 192"):
         flash_attention(q, q, q)

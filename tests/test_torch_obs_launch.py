@@ -173,8 +173,9 @@ def test_serve_launcher_http_port(capsys):
                 stop.set()
         threading.Thread(target=client, daemon=True).start()
 
-    stats = launcher.main(["--reduced", "--device", "cpu", "--http-port",
-                           "0", "--num-partitions", "2", "--shed-policy",
+    stats = launcher.main(["--engine", "--reduced", "--device", "cpu",
+                           "--http-port", "0", "--num-partitions", "2",
+                           "--shed-policy",
                            "degrade", "--admission-queue", "2"],
                           stop=stop, on_ingress=on_ingress)
     out = capsys.readouterr().out

@@ -121,7 +121,8 @@ def test_replay_in_wall_clock_time(setup):
 
 def test_launcher_rate_path(capsys):
     from repro_torch.launch import serve as launcher
-    stats = launcher.main(["--reduced", "--device", "cpu", "--rate", "100",
+    stats = launcher.main(["--engine", "--reduced", "--device", "cpu",
+                           "--rate", "100",
                            "--time-scale", "0", "--requests", "4",
                            "--prompt-len", "4:24", "--gen", "2:8",
                            "--num-partitions", "2", "--seed", "3"])
