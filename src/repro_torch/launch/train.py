@@ -1,5 +1,6 @@
-"""Training launcher of the port: AdamW steps of a model on seeded
-synthetic tokens.
+"""Training launcher of the port: optimizer steps of a model on seeded
+synthetic tokens (AdamW, 8-bit AdamW or Adafactor, as ``cfg.optimizer``
+says).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch moe-gpt3-s \\
         --full --steps 10 --batch 8 --seq 1024
@@ -19,6 +20,9 @@ the end. ``--metrics-port`` serves live Prometheus ``/metrics`` (the
 ``repro_train_step_seconds`` families and the controller's resolver
 families) and ``--trace-out`` writes the resolver's retune spans as a
 Perfetto-loadable trace at exit, as in the JAX launcher.
+``--ckpt-dir DIR`` checkpoints the run there every ``--ckpt-every``
+steps and at the end, and a run started over the same directory resumes
+from its latest checkpoint (``''``, the default, turns it off).
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import dataclasses
 import logging
 from typing import List, Optional, Sequence
 
+from repro_torch.ckpt import Checkpointer
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.selector import resolve
@@ -60,6 +65,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run on "
                          "the CPU)")
@@ -108,6 +115,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
         print(f"MPipeMoE: n={cfg.moe.num_partitions} "
               f"strategy={cfg.moe.memory_reuse_strategy}", flush=True)
     ds = SyntheticTokens(cfg, batch=args.batch, seq=args.seq, seed=0)
+    ck = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
     opts = TrainOptions(lr=args.lr, warmup=min(20, args.steps // 5),
                         total_steps=args.steps)
 
@@ -129,6 +137,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
 
     try:
         _, hist = train(cfg, steps=args.steps, batch_source=ds, opts=opts,
+                        checkpointer=ck, ckpt_every=args.ckpt_every,
                         heartbeat=heartbeat, adaptive=adaptive,
                         device=args.device)
     finally:

@@ -11,6 +11,7 @@ like the JAX package's.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -86,19 +87,46 @@ def init_compute(cfg: ArchConfig, seed: int = 0, *, device=None):
         x, dt, _keeps_fp32, path))
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``"dots"``: the counterpart of
+    JAX's ``dots_with_no_batch_dims_saveable``. Save the outputs of the
+    products that have no batch dimension and recompute everything else.
+    The port's products reach three aten ops (logged on the train
+    forward): ``mm`` for ``x @ w`` (dense FFN, router logits, LM head),
+    ``bmm`` with a batch of 1 where ``torch.einsum`` has no batch label
+    to keep (the q/k/v and output projections, ``bsd,dhe->bshe``), and
+    ``bmm`` over a real batch (attention's scores and PV in the plain
+    version, the experts' ``[E, C, M]`` products). The first two are
+    saved, the third is recomputed; so are the CUDA kernels, which are
+    no aten ops. A real batch of one (one expert, or one batch row with
+    one KV head) would be saved too: the values are the same either
+    way, only the memory differs."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _remat_wrap(fn, cfg: ArchConfig):
     """Layer-level rematerialisation of a period body, as the JAX
     package's ``_remat_wrap``: ``"nothing"`` keeps every activation,
     ``"full"`` recomputes the period in the backward pass
-    (``torch.utils.checkpoint``, non-reentrant)."""
+    (``torch.utils.checkpoint``, non-reentrant), ``"dots"`` recomputes
+    it but keeps the outputs of its products without a batch dimension
+    (``_dots_policy``, through a selective-checkpoint context)."""
     if cfg.remat_policy == "nothing":
         return fn
     if cfg.remat_policy == "full":
         return lambda *args: checkpoint(fn, *args, use_reentrant=False)
     if cfg.remat_policy == "dots":
-        raise NotImplementedError(
-            "remat_policy 'dots' (save the matmul outputs only) is not "
-            "ported yet (ROADMAP.md Queue 1, 'Remat policies')")
+        from torch.utils.checkpoint import \
+            create_selective_checkpoint_contexts
+        context = functools.partial(create_selective_checkpoint_contexts,
+                                    _dots_policy)
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                        context_fn=context)
     raise ValueError(cfg.remat_policy)
 
 

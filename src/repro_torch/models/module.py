@@ -66,6 +66,28 @@ def leaves(tree) -> list:
     return [tree]
 
 
+def _unflatten(t, it) -> Any:
+    if isinstance(t, dict):
+        out = {k: _unflatten(t[k], it) for k in sorted(t)}
+        return {k: out[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        return [_unflatten(v, it) for v in t]
+    return next(it)
+
+
+def unflatten(tree, flat: list) -> Any:
+    """``flat`` (in ``leaves(tree)`` order) put back into ``tree``'s
+    nesting of dicts and lists. (A module-level recursion: a recursive
+    closure would be a reference cycle keeping ``flat``'s tensors alive
+    until the garbage collector runs.)"""
+    it = iter(flat)
+    out = _unflatten(tree, it)
+    end = object()
+    if next(it, end) is not end:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
 def build(spec_tree, gen: torch.Generator, device,
           leaf_fn: Optional[Callable[[tuple, torch.Tensor],
                                      torch.Tensor]] = None,

@@ -1,24 +1,26 @@
-"""Optimizers and the LR schedule, as ``repro.optim``: AdamW with fp32
-moments. The 8-bit AdamW and Adafactor are ROADMAP.md Queue 1 items."""
+"""Optimizers and the LR schedule, as ``repro.optim``: AdamW with fp32 or
+8-bit moments, and Adafactor. Each takes the parameter tree and its
+gradient tree; the two memory-lean ones read the period leaves as the
+JAX package's stacked leaves (``optim.groups``)."""
 from __future__ import annotations
 
 import math
 
 import numpy as np
 
-from repro_torch.optim import adamw
+from repro_torch.optim import adafactor, adamw
+from repro_torch.optim.adafactor import AdafactorConfig
 from repro_torch.optim.adamw import AdamWConfig
 
 
 def get_optimizer(name: str, lr: float = 1e-3):
-    """Returns (module, config) for ``'adamw'``; ``'adamw8bit'`` and
-    ``'adafactor'`` are not ported yet."""
+    """Returns (module, config) for 'adamw' | 'adamw8bit' | 'adafactor'."""
     if name == "adamw":
         return adamw, AdamWConfig(lr=lr)
-    if name in ("adamw8bit", "adafactor"):
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet (ROADMAP.md Queue 1, "
-            f"'Optimizers')")
+    if name == "adamw8bit":
+        return adamw, AdamWConfig(lr=lr, quantize_moments=True)
+    if name == "adafactor":
+        return adafactor, AdafactorConfig(lr=lr)
     raise ValueError(name)
 
 
@@ -36,4 +38,5 @@ def lr_schedule(step: int, *, base_lr: float = 1.0, warmup: int = 100,
                  * (f32(min_ratio) + f32(1 - min_ratio) * cos))
 
 
-__all__ = ["adamw", "AdamWConfig", "get_optimizer", "lr_schedule"]
+__all__ = ["adafactor", "adamw", "AdafactorConfig", "AdamWConfig",
+           "get_optimizer", "lr_schedule"]

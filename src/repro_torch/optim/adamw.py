@@ -1,5 +1,4 @@
-"""AdamW with fp32 moments, as ``repro.optim.adamw`` without the 8-bit
-moments.
+"""AdamW, with fp32 or 8-bit moments, as ``repro.optim.adamw``.
 
 The update repeats the JAX package's arithmetic in the same order —
 bias-corrected moments, then ``weight_decay * p`` added to the step
@@ -12,16 +11,28 @@ Unlike the JAX package, which returns new trees, the update writes the
 parameters and moments in place: the full-width model's fp32 weights and
 moments are ~23 GB, and a second copy would not fit beside the
 activations.
+
+With ``quantize_moments`` (``get_optimizer("adamw8bit")``) each moment
+of a leaf whose JAX rank is 2 or more is a ``Q8``: int8 values and one
+fp32 scale a row of the last axis, ``scale = max(amax, 1e-12) / 127``,
+rounded half to even as ``jnp.round`` does. The JAX rank of a period
+leaf is its rank + 1 (JAX stacks periods on axis 0, ``optim.groups``),
+so a period's 1-D norm scales and biases are quantised too, one row
+each, while ``final_norm``'s stay fp32. The update dequantises, steps
+and requantises a large leaf slice by slice along axis 0, so that no
+temporary of the whole leaf is made; rows run along the last axis, so
+each row's scale is the same as over the whole leaf.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.models.module import leaves
+from repro_torch.optim.groups import paths, slices
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,18 +42,76 @@ class AdamWConfig:
     b2: float = 0.999
     eps: float = 1e-8
     weight_decay: float = 0.01
+    quantize_moments: bool = False   # int8 moments + per-row scales
 
 
-def _zeros_like(tree):
-    if isinstance(tree, dict):
-        return {k: _zeros_like(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_zeros_like(v) for v in tree]
-    return torch.zeros(tree.shape, dtype=torch.float32, device=tree.device)
+class Q8(NamedTuple):
+    q: torch.Tensor        # int8 payload, the leaf's shape
+    scale: torch.Tensor    # fp32, the leaf's shape with the last axis 1
+
+
+def _zeros(p) -> torch.Tensor:
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def _q8_zeros(p) -> Q8:
+    """``_quantize`` of zeros: q 0 and the scale of an all-zero row."""
+    scale = torch.full(tuple(p.shape[:-1]) + (1,), 1e-12,
+                       dtype=torch.float32, device=p.device) / 127.0
+    return Q8(torch.zeros(p.shape, dtype=torch.int8, device=p.device), scale)
+
+
+def _moments(t, cfg: AdamWConfig, stacked: bool = False, top: bool = True):
+    """A moment tree shaped as ``t``: fp32 zeros, or ``Q8`` zeros for the
+    leaves whose JAX rank is 2 or more (a leaf of the top-level
+    ``periods`` list is stacked there)."""
+    if isinstance(t, dict):
+        return {k: _moments(v, cfg, stacked or (top and k == "periods"
+                                                and isinstance(v, list)),
+                            False)
+                for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return [_moments(v, cfg, stacked, False) for v in t]
+    if cfg.quantize_moments and t.dim() + stacked >= 2:
+        return _q8_zeros(t)
+    return _zeros(t)
 
 
 def init(params, cfg: AdamWConfig) -> Dict:
-    return {"m": _zeros_like(params), "v": _zeros_like(params), "count": 0}
+    return {"m": _moments(params, cfg), "v": _moments(params, cfg),
+            "count": 0}
+
+
+def _dequantize(x: Q8, sl) -> torch.Tensor:
+    return x.q[sl].float() * x.scale[sl]
+
+
+def _quantize_into(x: torch.Tensor, out: Q8, sl) -> None:
+    """``out[sl] = _quantize(x)``; overwrites ``x``."""
+    scale = x.abs().amax(dim=-1, keepdim=True).clamp_min_(1e-12).div_(127.0)
+    out.scale[sl].copy_(scale)
+    out.q[sl].copy_(x.div_(scale).round_())
+
+
+def _q8_step(g, m: Q8, v: Q8, p, cfg: AdamWConfig, b1c: float, b2c: float,
+             lr: float) -> None:
+    """One step of a leaf with int8 moments, in slices along axis 0, in
+    the JAX package's order of operations."""
+    for sl in slices(p.shape, 2):
+        ps = p[sl]
+        gs = torch.zeros(ps.shape, dtype=torch.float32, device=p.device) \
+            if g is None else g[sl].float()
+        m_new = _dequantize(m, sl).mul_(cfg.b1).add_(gs * (1 - cfg.b1))
+        v_new = _dequantize(v, sl).mul_(cfg.b2).add_(
+            gs.mul(1 - cfg.b2).mul_(gs))
+        del gs
+        step = (m_new / b1c) / ((v_new / b2c).sqrt_() + cfg.eps)
+        if cfg.weight_decay:
+            step.add_(ps.float() * cfg.weight_decay)
+        ps.copy_(ps.float() - step.mul_(lr))
+        del step
+        _quantize_into(m_new, m, sl)
+        _quantize_into(v_new, v, sl)
 
 
 @torch.no_grad()
@@ -57,8 +126,12 @@ def update(grads, state: Dict, params, cfg: AdamWConfig,
     b2c = f32(1) - f32(cfg.b2) ** f32(count)
     lr = float(f32(cfg.lr) * f32(lr_scale))
     b1c, b2c = float(b1c), float(b2c)
-    for g, m, v, p in zip(leaves(grads), leaves(state["m"]),
-                          leaves(state["v"]), leaves(params)):
+    flat = lambda t: [x for _, x in paths(t)]  # noqa: E731 (Q8 a leaf)
+    for g, m, v, p in zip(flat(grads), flat(state["m"]), flat(state["v"]),
+                          leaves(params)):
+        if isinstance(m, Q8):
+            _q8_step(g, m, v, p, cfg, b1c, b2c, lr)
+            continue
         g = torch.zeros_like(m) if g is None else g.float()
         m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
         v.mul_(cfg.b2).add_(g * g * (1 - cfg.b2))

@@ -16,9 +16,13 @@ every ``retune_every`` steps — through a persistent
 ``core.selector.Resolver``, and builds a step only when the resolved
 (n, strategy, batch shape) key is new (an LRU of step functions).
 
-Not ported yet, each raising ``NotImplementedError``: int8 gradient
-compression (ROADMAP.md's 'Expert parallelism' slice) and
-checkpoint/restart (ROADMAP.md Queue 1, 'Checkpointing').
+Checkpoint/restart (``train(checkpointer=...)``) follows the JAX loop:
+restore at start, a save every ``ckpt_every`` steps and a blocking save
+at the end, and a roll-back to the latest checkpoint when a step fails
+past its retries or in its optimizer update.
+
+Not ported yet, raising ``NotImplementedError``: int8 gradient
+compression (ROADMAP.md's 'Expert parallelism' slice).
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ from repro_torch.core.selector import Resolver
 from repro_torch.core.types import GPU_H100, HardwareSpec, Strategy
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
-from repro_torch.models.module import leaves
+from repro_torch.models.module import leaves, unflatten
 from repro_torch.obs import Recorder
 from repro_torch.optim import get_optimizer, lr_schedule
 
@@ -116,14 +120,16 @@ def _step_parts(cfg: ArchConfig, opts: TrainOptions):
         return grads, metrics
 
     def update(state, grads, metrics):
-        flat = leaves(state["params"])
+        params = state["params"]
         scale = lr_schedule(state["step"], warmup=opts.warmup,
                             total=opts.total_steps)
-        gnorm = torch.zeros((), device=flat[0].device)
+        gnorm = torch.zeros((), device=grads[0].device)
         for x in grads:
             gnorm = gnorm + torch.sum(x * x)
-        opt = opt_mod.update(grads, state["opt"], flat, ocfg,
-                             lr_scale=scale)
+        # the tree, not the flat leaves: the 8-bit AdamW and Adafactor
+        # read the period leaves as JAX's stacked ones (optim.groups)
+        opt = opt_mod.update(unflatten(params, grads), state["opt"], params,
+                             ocfg, lr_scale=scale)
         new_state = dict(state, opt=opt, step=state["step"] + 1)
         out = {k: float(v) for k, v in metrics.items()}
         out.update(grad_norm=float(torch.sqrt(gnorm)), lr_scale=scale)
@@ -346,10 +352,10 @@ class AdaptiveController:
 
 def train(cfg: ArchConfig, *, steps: int, batch_source,
           opts: Optional[TrainOptions] = None, checkpointer=None,
-          max_retries: int = 2,
+          ckpt_every: int = 100, max_retries: int = 2,
           heartbeat: Optional[Callable[[int, Dict], None]] = None,
           state=None, adaptive=None, device=None):
-    """Run ``steps`` training steps.
+    """Run ``steps`` training steps with checkpoint/restart semantics.
 
     ``batch_source.batch_at(step)`` must be deterministic (seekable).
     ``adaptive`` selects the online (n, strategy) controller: ``None``
@@ -359,18 +365,28 @@ def train(cfg: ArchConfig, *, steps: int, batch_source,
     then run as n = 4 and ``none``, as in the JAX package); an
     :class:`AdaptiveOptions` tunes the controller, and a pre-built
     :class:`AdaptiveController` is used as given (callers inspect its
-    counters). A step whose loss or backward pass fails is retried up
-    to ``max_retries`` times: that half writes nothing. A failure in or
-    after the optimizer update raises, since the update writes the
-    parameters and moments in place and there is no checkpoint to go
-    back to. Returns (final state, history list of metric dicts, each
-    with its ``step`` and ``step_time_s``, and with the controller its
-    ``n``, ``strategy`` and, on a retune, ``retune_time_s``)."""
+    counters).
+
+    With a ``checkpointer`` (``repro_torch.ckpt.Checkpointer``), as the
+    JAX loop: the latest checkpoint is restored at start into the state
+    (in place) and the run resumes from its step; after every step whose
+    count is a multiple of ``ckpt_every`` the state is saved, and at the
+    end the state of ``steps`` is saved with ``block=True`` (unless the
+    loop has just saved that state: then it only waits for the write).
+    The JAX loop restores without a ``like`` tree, which hands the step a
+    flat ``{"params/...": array}`` dict; the port restores into the live
+    state.
+
+    A step whose loss or backward pass fails is retried up to
+    ``max_retries`` times: that half writes nothing. Past them, and on
+    any failure in or after the optimizer update (which writes the
+    parameters and moments in place), the run rolls back to the latest
+    checkpoint and carries on from its step, reading that step's batch
+    again; without a checkpoint the failure is raised. Returns (final
+    state, history list of metric dicts, each with its ``step`` and
+    ``step_time_s``, and with the controller its ``n``, ``strategy`` and,
+    on a retune, ``retune_time_s``)."""
     opts = opts or TrainOptions()
-    if checkpointer is not None:
-        raise NotImplementedError(
-            "checkpoint/restart is not ported yet (ROADMAP.md Queue 1, "
-            "'Checkpointing')")
     if state is None:
         state = init_state(cfg, opts, seed=0, device=device)
     dev = leaves(state["params"])[0].device
@@ -388,31 +404,61 @@ def train(cfg: ArchConfig, *, steps: int, batch_source,
     if controller is None:
         grads_of, update = _step_parts(cfg, opts)
 
+    start = 0
+    saved = None                    # the step whose state was saved last
+    if checkpointer is not None:
+        restored = checkpointer.restore_latest(like=state)
+        if restored is not None:
+            state, start = restored["state"], int(restored["step"])
+            saved = start
+            log.info("restored checkpoint at step %d", start)
+
     history = []
-    step = 0                 # as the JAX loop without a checkpoint
+    step = start
     while step < steps:
         batch = _to_device(batch_source.batch_at(step), dev)
         attempt = 0
-        while True:
-            try:
-                ainfo: Dict[str, Any] = {}
-                if controller is not None:
-                    (grads_of, update), ainfo = controller.step_fn(
-                        state, batch, step)
-                t0 = time.perf_counter()
-                grads, metrics = grads_of(state["params"], batch)
-                break
-            except Exception:
-                attempt += 1
-                log.exception("step %d failed (attempt %d)", step, attempt)
-                if attempt > max_retries:
-                    raise
-        state, metrics = update(state, grads, metrics)
-        del grads
+        try:
+            while True:
+                try:
+                    ainfo: Dict[str, Any] = {}
+                    if controller is not None:
+                        (grads_of, update), ainfo = controller.step_fn(
+                            state, batch, step)
+                    t0 = time.perf_counter()
+                    grads, metrics = grads_of(state["params"], batch)
+                    break
+                except Exception:
+                    attempt += 1
+                    log.exception("step %d failed (attempt %d)", step,
+                                  attempt)
+                    if attempt > max_retries:
+                        raise
+            state, metrics = update(state, grads, metrics)
+            del grads
+        except Exception:
+            restored = (checkpointer.restore_latest(like=state)
+                        if checkpointer is not None else None)
+            if restored is None:
+                raise
+            log.exception("step %d failed; rolling back", step)
+            grads = None
+            state, step = restored["state"], int(restored["step"])
+            saved = step
+            log.warning("rolled back to step %d", step)
+            continue
         metrics["step_time_s"] = time.perf_counter() - t0
         metrics.update(ainfo)
         history.append({"step": step, **metrics})
         if heartbeat is not None:
             heartbeat(step, metrics)
         step += 1
+        if checkpointer is not None and step % ckpt_every == 0:
+            checkpointer.save(step, state)
+            saved = step
+    if checkpointer is not None:
+        if saved == steps:
+            checkpointer.wait()
+        else:
+            checkpointer.save(steps, state, block=True)
     return state, history

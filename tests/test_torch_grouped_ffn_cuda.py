@@ -8,7 +8,9 @@ C 1, 8, 40, 100 and 130 (one row, the decode capacity, the training
 chunk, a ragged C and one past the 128-row pass), M 64, 768 and 2048 and
 H 32, 1408 and 3072, gated and plain. Experts whose rows are all zero
 must come out exactly 0 (the kernel reads none of their weights), and a
-NaN in an otherwise zero expert must make it count as fed. This file
+NaN in an otherwise zero expert must make it count as fed. The training
+chunks of moe-bert-l (M 1024, H 4096) and moe-gpt3-xl (M 2048, H 8192)
+are held forward and backward in bf16. This file
 imports neither ``jax`` nor the JAX package:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \\
@@ -119,3 +121,37 @@ def test_nan_row_counts_as_fed(dtype):
     assert torch.isfinite(fin_out).all()
     assert (fin_out - fin_ref.float()).abs().max().item() \
         <= tolerance(fin_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,h", [(1024, 4096),     # moe-bert-l
+                                 (2048, 8192)])    # moe-gpt3-xl
+def test_paper_model_training_chunk_forward_and_backward(m, h):
+    """One training chunk of the paper's two larger models (E 64, C 40:
+    2048 tokens, top-1, capacity factor 1.25) in bf16: the forward within
+    ``ref.tolerance``, and the gradients through the wrapper (its
+    backward differentiates the plain version with an fp32 hidden, as
+    the JAX package's custom VJP does) within ``ref.tolerance`` of each
+    gradient of ``grouped_ffn_ref(round_hidden=False)`` on the same
+    inputs."""
+    _cuda()
+    from repro_torch.kernels.grouped_ffn import grouped_ffn, grouped_ffn_ref
+    from repro_torch.kernels.grouped_ffn.ref import tolerance
+    x, wu, _, wd = _inputs(64, 40, m, h, False, torch.bfloat16, seed=m)
+    ins = [t.clone().requires_grad_(True) for t in (x, wu, wd)]
+    build.reset_launches()
+    out = grouped_ffn(ins[0], ins[1], None, ins[2], "gelu")
+    ref = grouped_ffn_ref(x, wu, None, wd, "gelu")
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["grouped_ffn"] == 1
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= tolerance(ref)
+    g = _randn(out.shape, 7, 1.0, torch.bfloat16)
+    gk = torch.autograd.grad(out, ins, g)
+    rin = [t.clone().requires_grad_(True) for t in (x, wu, wd)]
+    gr = torch.autograd.grad(grouped_ffn_ref(rin[0], rin[1], None, rin[2],
+                                             "gelu", round_hidden=False),
+                             rin, g)
+    for a, b in zip(gk, gr):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all()
+        assert (a.float() - b.float()).abs().max().item() <= tolerance(b)

@@ -10,7 +10,9 @@ output rounding plus the bf16 rounding of the probabilities, weighted
 by |v|). The gradient through each wrapper is held against
 autograd through the plain version within rtol 1e-4, atol 1e-5 (fp32;
 the backward is that plain version, but the forward it saves for is
-the kernel's). Every case counts its launch. This file imports neither
+the kernel's). Every case counts its launch. The 8-bit AdamW and
+Adafactor each take a step on the card against the same step on the CPU.
+This file imports neither
 ``jax`` nor the JAX package, so on a machine with the card and ``nvcc``
 it runs without them:
 
@@ -165,3 +167,67 @@ def test_two_reduced_train_steps_on_the_card(strategy):
     assert build.LAUNCHES["flash_attention"] == 2 * cfg.num_layers
     assert build.LAUNCHES["grouped_ffn"] == 2 * per_step
     assert build.LAUNCHES["topk_router"] == 2 * per_step
+
+
+def _q8_or_tensors(tree):
+    from repro_torch.optim.groups import paths
+    return [x for _, x in paths(tree)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["adamw8bit", "adafactor"])
+def test_memory_lean_optimizer_step_on_the_card_matches_the_cpu(optimizer):
+    """One train step of reduced moe-gpt3-s (4 layers, 2 periods, fp32)
+    under ``optimizer``, on the card and on the CPU from the same weights:
+    the losses within rtol 1e-5 (kernels against plain versions), and the
+    optimizer update of the CPU step's gradients, run on both devices,
+    within the CPU tests' tolerances against the JAX package: parameters
+    rtol 1e-6 / atol 1e-7; 8-bit scales rtol 1e-6 and payloads at most 1
+    apart; Adafactor's ``vr`` / ``vc`` rtol 1e-6."""
+    dev = _cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import lm
+    from repro_torch.models.module import leaves, unflatten
+    from repro_torch.optim import get_optimizer
+    from repro_torch.optim.adamw import Q8
+    from repro_torch.runtime import TrainOptions, init_state, train
+    from repro_torch.runtime.train_loop import _step_parts, _to_device
+    cfg = get_config("moe-gpt3-s").reduced()
+    cfg = dataclasses.replace(cfg, optimizer=optimizer,
+                              moe=dataclasses.replace(
+                                  cfg.moe, num_partitions=2,
+                                  memory_reuse_strategy="s4"))
+    opts = TrainOptions(lr=1e-3, warmup=0, total_steps=2)
+    params = lm.init(cfg, 3, device="cpu")
+    src = SyntheticTokens(cfg, 4, 32, seed=0)
+    losses = []
+    for d in (dev, "cpu"):
+        state = init_state(cfg, opts, device=d, params=params)
+        _, hist = train(cfg, steps=1, batch_source=src, opts=opts,
+                        state=state, adaptive=False)
+        losses.append(hist[0]["loss"])
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+    # the update alone, on the same gradients
+    grads_of, _ = _step_parts(cfg, opts)
+    cpu = init_state(cfg, opts, device="cpu", params=params)
+    grads, _ = grads_of(cpu["params"], _to_device(src.batch_at(0), "cpu"))
+    card = init_state(cfg, opts, device=dev, params=params)
+    mod, ocfg = get_optimizer(optimizer, lr=1e-3)
+    for st, d in ((cpu, "cpu"), (card, dev)):
+        g = unflatten(st["params"], [x.to(d) for x in grads])
+        st["opt"] = mod.update(g, st["opt"], st["params"], ocfg,
+                               lr_scale=0.5)
+    for a, b in zip(leaves(card["params"]), leaves(cpu["params"])):
+        np.testing.assert_allclose(a.detach().cpu().numpy(),
+                                   b.detach().numpy(), rtol=1e-6, atol=1e-7)
+    for a, b in zip(_q8_or_tensors(card["opt"]), _q8_or_tensors(cpu["opt"])):
+        if isinstance(a, Q8):
+            np.testing.assert_allclose(a.scale.cpu().numpy(),
+                                       b.scale.numpy(), rtol=1e-6)
+            diff = a.q.cpu().int() - b.q.int()
+            assert diff.abs().max().item() <= 1
+        elif isinstance(a, torch.Tensor):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                       rtol=1e-6, atol=0 if optimizer ==
+                                       "adafactor" else 1e-7)
