@@ -178,7 +178,21 @@ order; any failure ends the run with a non-zero exit and no result line:
 17. card vs CPU: 3 fp32 steps of 2-layer full-width moe-gpt3-s on the
    card (kernels) and on the CPU (plain versions), losses within
    ``CARD_VS_CPU_RTOL``;
-18. the ``kernels`` JSON line; 19. the ``ok`` JSON line, last.
+18. expert parallelism (``tools/ep_phase.py``, which runs it alone): two
+   gloo processes sharing the card (one card cannot host two NCCL
+   ranks), mesh (1, 2): which collectives gloo runs on CUDA tensors
+   (``ep-probe``); full-width moe-gpt3-s at 4 layers, fp32, trained
+   under NONE and S4 against a one-rank run (``ep-train``: loss, every
+   gathered gradient leaf); full-width DeepSeek-V2-Lite at 2 layers
+   through ``lm.prefill`` and 4 ``lm.decode_step``s with ``dist``
+   against the one-rank run (``ep-decode``: greedy tokens equal, logits,
+   the expert FFN's launches at the EP shapes); the train launcher
+   under ``torch.distributed.run`` on NCCL (``ep-launcher``); a profile
+   of the overlapped schedule (``ep-trace``: whether chunk i+1's
+   dispatch All-to-All overlaps chunk i's expert FFN); the ranks'
+   router and expert-FFN launches join the main paths' counts;
+19. the ``kernels`` JSON line (the expert FFN's row carrying its EP
+   shapes, ``ep``); 20. the ``ok`` JSON line, last.
 
 The serving phases 4-10 and 12-13 fix n = 4 (``adaptive=False``, the
 launcher's ``--num-partitions 4``), so their numbers compare with earlier
@@ -862,6 +876,16 @@ def train_kernel_cases(torch) -> list:
                                     dtype, seed=10 * len(rows),
                                     library=lib))
         torch.cuda.empty_cache()
+    # the expert-parallel shapes (mesh (1, 2), 32 experts a rank), after
+    # the others so that theirs keep their seeds: moe-gpt3-s's training
+    # chunk [32, 2 x 24, 768] and DeepSeek-V2-Lite's 16-token prefill
+    # chunk [32, 2 x 8, 2048]
+    for dtype in ("bfloat16", "float32"):
+        for case, c, m, h, gated, act in (
+                ("ep_train", 48, 768, 3072, False, "gelu"),
+                ("ep_deepseek", 16, 2048, 1408, True, "silu")):
+            rows.append(check_grouped(torch, case, 32, c, m, h, gated, act,
+                                      dtype, seed=10 * len(rows)))
     return rows
 
 
@@ -3642,12 +3666,20 @@ def main() -> int:
     log(f"phase 17 at {time.perf_counter() - t_start:.1f} s")
     card_vs_cpu(torch)
 
-    # -- 18. kernels line ---------------------------------------------------
+    # -- 18. expert parallelism --------------------------------------------
     log(f"phase 18 at {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    sys.path.insert(0, str(ROOT / "tools"))
+    import ep_phase
+    ep_launches = ep_phase.ep_phase()
+
+    # -- 19. kernels line ---------------------------------------------------
+    log(f"phase 19 at {time.perf_counter() - t_start:.1f} s")
     main_launches = (serve_launches + offload_launches + prefix_launches
                      + cancel_launches + obs_launches + deepseek_launches
                      + dense_launches + train_launches + memory_launches
-                     + adaptive_launches)
+                     + adaptive_launches + ep_launches)
     def head(kernel, case="train", dtype="bfloat16"):
         return next(r for r in kernel_rows if r["kernel"] == kernel
                     and r["case"] == case and r["dtype"] == dtype
@@ -3685,7 +3717,10 @@ def main() -> int:
               "paged_mla_decode.cu", "paged_attention/kernel.py:142",
               head("paged_mla_decode", "engine")),
         entry("grouped_ffn", "grouped_ffn/csrc/grouped_ffn.cu",
-              "grouped_ffn/kernel.py:61", head("grouped_ffn")),
+              "grouped_ffn/kernel.py:61", head("grouped_ffn"),
+              ep=[{k: r[k] for k in D192_KEYS} for r in kernel_rows
+                  if r["kernel"] == "grouped_ffn"
+                  and r["case"].startswith("ep_")]),
         entry("topk_router", "topk_router/csrc/topk_router.cu",
               "topk_router/kernel.py:42", head("topk_router", "plan_train",
                                                "float32"),
@@ -3697,7 +3732,7 @@ def main() -> int:
                     and r["case"].startswith("d192")]),
     ]}), flush=True)
 
-    # -- 19. result ---------------------------------------------------------
+    # -- 20. result ---------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

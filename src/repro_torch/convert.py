@@ -8,6 +8,12 @@ list of per-period trees. The caller turns the JAX tree into numpy
 first (``jax.tree.map(np.asarray, params)``), so this module never sees
 a JAX array.
 
+``shard_params`` turns the whole tree into one rank's under expert
+parallelism (``moe.layer.shard_params``: its experts, ZeRO-3 shards of
+them in training), and ``gather_params`` turns any tree shaped as a
+rank's parameters (its gradients too) back into the whole tree on every
+rank.
+
 ``from_jax_state`` carries a whole train state across (parameters, the
 optimizer state of any of the three optimizers, the step), so a run
 begun in the JAX package can go on in the port. The moments mirror the
@@ -24,7 +30,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.collectives import gather_dim
 from repro_torch.models.module import leaves
+from repro_torch.moe import layer as moe_layer
 from repro_torch.optim.adamw import Q8
 
 
@@ -89,3 +97,50 @@ def from_jax_state(state_np: dict, *, device=None) -> dict:
                    "v": from_jax(opt["v"], device=dev), "count": count}
     return {"params": params, "opt": new_opt,
             "step": int(np.asarray(state_np["step"]))}
+
+
+def _map_moe(tree, fn) -> Any:
+    """``tree`` with each MoE layer's dict (the one holding ``experts``)
+    replaced by ``fn(it)``."""
+    if isinstance(tree, dict):
+        if "experts" in tree and "router" in tree:
+            return fn(tree)
+        return {k: _map_moe(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_moe(v, fn) for v in tree]
+    return tree
+
+
+def shard_tree(params: dict, dist, mode: str = "train") -> dict:
+    """The port's whole parameter tree -> this rank's (``dist``: a
+    ``DistContext``; ``mode="train"`` takes ZeRO-3 shards where the
+    JAX layer would)."""
+    return _map_moe(params, lambda p: moe_layer.shard_params(p, dist, mode))
+
+
+def shard_params(params_np: dict, dist, *, mode: str = "train",
+                 device=None) -> dict:
+    """The JAX package's whole tree (numpy) -> this rank's tree on
+    ``device`` (default: the context's)."""
+    return shard_tree(from_jax(params_np, device=device or dist.device),
+                      dist, mode)
+
+
+@torch.no_grad()
+def _gather_experts(experts: dict, dist) -> dict:
+    w_up, w_down = experts["w_up"], experts["w_down"]
+    zero3 = w_up.shape[-1] != w_down.shape[-2]
+    out = {}
+    for k, v in experts.items():
+        v = v.detach()
+        if zero3:
+            v = gather_dim(v, dist.dp_group, v.dim() - 1)
+        out[k] = gather_dim(v, dist.ep_group, 0) if dist.ep_size > 1 else v
+    return out
+
+
+def gather_params(params: dict, dist) -> dict:
+    """A tree shaped as this rank's parameters (or their gradients) ->
+    the whole tree, on every rank (collective over the mesh)."""
+    return _map_moe(params, lambda p: dict(
+        p, experts=_gather_experts(p["experts"], dist)))

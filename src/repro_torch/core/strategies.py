@@ -11,11 +11,18 @@ offloaded names go to pinned host memory. Here:
   saves.
 * ``S2`` and ``S4`` run it under ``torch.utils.checkpoint`` (non-
   reentrant): the whole chunk is recomputed in the backward pass, the
-  dispatch included, so ``T_DI`` is rebuilt ("re-communication": one
-  device has no All-to-All, the re-dispatch is what remains).
+  dispatch included, so ``T_DI`` is rebuilt ("re-communication": under
+  expert parallelism the dispatch All-to-All runs again; on one device
+  the re-dispatch is what remains).
 * ``S1`` and ``S3`` run it under the same checkpoint, but ``T_DI`` is
   copied to pinned host memory in the forward pass and copied back in
   the recompute instead of being re-dispatched (``_restore_t_di``).
+
+Under expert parallelism ``T_DI`` is the buffer after the dispatch
+All-to-All (the JAX package tags it there), and the chunk's forward
+pass is split around its collectives so that chunk i+1's dispatch can
+overlap chunk i's expert FFN: ``recompute`` wraps such a chunk, whose
+forward ran without a graph, and re-runs it in the backward pass.
 
 ``T_M`` is restored by recompute under every strategy: the fused
 ``grouped_ffn`` kernel never writes it, and its backward rebuilds it
@@ -37,6 +44,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.types import Strategy
+from repro_torch.distributed import collectives as C
+from repro_torch.models.module import leaves, unflatten
 
 
 def host_offload_supported() -> bool:
@@ -68,32 +77,39 @@ class TdiStash:
 
 class _RestoreTdi(torch.autograd.Function):
     """Identity on ``buf`` (the dispatched ``T_DI``) whose backward is the
-    dispatch's own: ``d tokens[t] = sum_j d buf[dest[t*k + j]]``. It lets
-    the recompute take ``T_DI`` from the stash instead of re-running the
-    dispatch, while the gradient still reaches the chunk's tokens."""
+    dispatch's own: ``d tokens[t] = sum_j d buf[dest[t*k + j]]``, after
+    the reverse All-to-All over ``group`` when ``buf`` was received
+    through one. It lets the recompute take ``T_DI`` from the stash
+    instead of re-running the dispatch, while the gradient still reaches
+    the chunk's tokens."""
 
     @staticmethod
-    def forward(ctx, tokens, dest, buf):
+    def forward(ctx, tokens, dest, buf, group):
         ctx.save_for_backward(dest)
         ctx.t = tokens.shape[0]
+        ctx.group = group
         return buf
 
     @staticmethod
     def backward(ctx, g):
         (dest,) = ctx.saved_tensors
+        if ctx.group is not None:
+            g = C.all_to_all(g, ctx.group)[0]
         e, c, m = g.shape
         flat = torch.cat([g.reshape(e * c, m), g.new_zeros((1, m))], dim=0)
         k = dest.shape[0] // ctx.t
-        return flat[dest.long()].reshape(ctx.t, k, m).sum(1), None, None
+        return (flat[dest.long()].reshape(ctx.t, k, m).sum(1), None, None,
+                None)
 
 
 def restore_t_di(tokens, dest, dispatch_fn: Callable[[], torch.Tensor],
-                 stash: Optional[TdiStash]) -> torch.Tensor:
+                 stash: Optional[TdiStash], group=None) -> torch.Tensor:
     """``T_DI`` for a chunk. Without a stash: ``dispatch_fn()`` under
     autograd. With one: the first call (the forward pass) dispatches
     without a graph and keeps the result in the stash; a second call (the
     checkpoint's recompute) fetches it back. Both calls build the same
-    graph (one ``_RestoreTdi``), as the checkpoint requires."""
+    graph (one ``_RestoreTdi``), as the checkpoint requires. ``group``:
+    the EP group whose dispatch All-to-All ``dispatch_fn`` ends with."""
     if stash is None:
         return dispatch_fn()
     if stash.saved is None:
@@ -102,7 +118,45 @@ def restore_t_di(tokens, dest, dispatch_fn: Callable[[], torch.Tensor],
         stash.keep(buf)
     else:
         buf = stash.fetch(tokens.device)
-    return _RestoreTdi.apply(tokens, dest, buf)
+    return _RestoreTdi.apply(tokens, dest, buf, group)
+
+
+class _Recompute(torch.autograd.Function):
+    """A chunk whose forward pass ran without a graph (``results``) and
+    whose backward pass re-runs ``fn(params, chunk)`` under autograd and
+    differentiates it: the split-forward counterpart of the checkpoint
+    of ``wrap_chunk``."""
+
+    @staticmethod
+    def forward(ctx, fn, template, results, chunk, *flat):
+        ctx.fn, ctx.template = fn, template
+        ctx.save_for_backward(chunk, *flat)
+        return results
+
+    @staticmethod
+    def backward(ctx, *gs):
+        saved = ctx.saved_tensors
+        ins = [t.detach().requires_grad_(ctx.needs_input_grad[3 + i])
+               for i, t in enumerate(saved)]
+        with torch.enable_grad():
+            out, aux = ctx.fn(unflatten(ctx.template, ins[1:]), ins[0])
+            outs = [out, aux["aux_loss"], aux["z_loss"]]
+            want = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad(outs, want, gs,
+                                           allow_unused=True))
+        return (None, None, None,
+                *[next(got) if t.requires_grad else None for t in ins])
+
+
+def recompute(fn: Callable, params, chunk: torch.Tensor, results):
+    """Attach the chunk's graph-free ``results`` (``out``, ``aux``) to
+    ``params`` and ``chunk``: the backward pass recomputes ``fn(params,
+    chunk)`` (which runs its collectives again) and differentiates it."""
+    out, aux = results
+    out, aux_loss, z_loss = _Recompute.apply(
+        fn, params, (out, aux["aux_loss"], aux["z_loss"]), chunk,
+        *leaves(params))
+    return out, {"aux_loss": aux_loss, "z_loss": z_loss}
 
 
 def wrap_chunk(fn: Callable, strategy: Strategy) -> Callable:

@@ -23,13 +23,29 @@ Perfetto-loadable trace at exit, as in the JAX launcher.
 ``--ckpt-dir DIR`` checkpoints the run there every ``--ckpt-every``
 steps and at the end, and a run started over the same directory resumes
 from its latest checkpoint (``''``, the default, turns it off).
+``--compress-grads`` turns on int8 gradient compression.
+
+Over ranks, under ``torch.distributed.run`` (one process a rank; NCCL on
+the card, gloo with ``--device cpu``), ``--mesh-data`` x
+``--mesh-model`` is the ``(dp, ep)`` mesh, JAX's rank layout; the world
+size must equal it. ``--batch`` is the global batch, split over dp:
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.train --mesh-data 2 --mesh-model 2 \
+        --device cpu --steps 3
+
+The offline resolve takes ``ep_size`` and ``dp`` from the mesh; rank 0
+prints.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import logging
+import os
 from typing import List, Optional, Sequence
+
+import torch.distributed
 
 from repro_torch.ckpt import Checkpointer
 from repro_torch.configs import get_config
@@ -37,11 +53,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.selector import resolve
 from repro_torch.core.types import HW_SPECS, resolve_hw
 from repro_torch.data import SyntheticTokens
+from repro_torch.distributed import init_distributed
 from repro_torch.runtime import AdaptiveOptions, TrainOptions, train
 
 
 def configure(args) -> ArchConfig:
-    """The config, its MoE placeholders resolved offline for one device
+    """The config, its MoE placeholders resolved offline for the mesh
     (``--adaptive``: set to the placeholders for the online
     controller)."""
     cfg = get_config(args.arch)
@@ -52,8 +69,9 @@ def configure(args) -> ArchConfig:
     if args.adaptive:
         return dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, num_partitions=0, memory_reuse_strategy="adaptive"))
-    return resolve(cfg, local_tokens=args.batch * args.seq, ep_size=1,
-                   hw=resolve_hw(args.hw), dp=1)
+    return resolve(cfg, local_tokens=args.batch * args.seq,
+                   ep_size=args.mesh_model, hw=resolve_hw(args.hw),
+                   dp=args.mesh_data)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -67,6 +85,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--mesh-data", type=int, default=1,
+                    help="data-parallel ranks (under "
+                         "torch.distributed.run)")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="expert-parallel ranks (under "
+                         "torch.distributed.run)")
+    ap.add_argument("--compress-grads", action="store_true",
+                    help="int8 gradient compression with error feedback")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run on "
                          "the CPU)")
@@ -95,6 +121,25 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     """Runs the launcher; returns the history of metric dicts."""
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    dist = None
+    if args.mesh_data * args.mesh_model > 1 or "RANK" in os.environ:
+        dist = init_distributed(args.mesh_data, args.mesh_model,
+                                device=args.device)
+        args.device = str(dist.device)
+    try:
+        return _run(args, dist)
+    finally:
+        if dist is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, dist) -> List[dict]:
+    lead = dist is None or dist.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    if dist is not None:
+        say(f"mesh: data={dist.dp_size} model={dist.ep_size} backend="
+            f"{torch.distributed.get_backend()} world={dist.world_size}",
+            flush=True)
     cfg = configure(args)
     # one telemetry surface for training: resolver retune spans and
     # counters land in the registry the heartbeat gauges use
@@ -104,20 +149,21 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     if args.metrics_port >= 0:
         server = MetricsServer(obs.registry,
                                port=args.metrics_port).start()
-        print(f"metrics: {server.url}/metrics", flush=True)
+        say(f"metrics: {server.url}/metrics", flush=True)
     adaptive = False
     if cfg.moe is not None and args.adaptive:
         adaptive = AdaptiveOptions(retune_every=args.retune_every,
                                    hw=resolve_hw(args.hw), obs=obs)
-        print("MPipeMoE: online adaptive (n, strategy) "
-              f"(retune_every={args.retune_every})", flush=True)
+        say("MPipeMoE: online adaptive (n, strategy) "
+            f"(retune_every={args.retune_every})", flush=True)
     elif cfg.moe is not None:
-        print(f"MPipeMoE: n={cfg.moe.num_partitions} "
-              f"strategy={cfg.moe.memory_reuse_strategy}", flush=True)
+        say(f"MPipeMoE: n={cfg.moe.num_partitions} "
+            f"strategy={cfg.moe.memory_reuse_strategy}", flush=True)
     ds = SyntheticTokens(cfg, batch=args.batch, seq=args.seq, seed=0)
     ck = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
     opts = TrainOptions(lr=args.lr, warmup=min(20, args.steps // 5),
-                        total_steps=args.steps)
+                        total_steps=args.steps,
+                        compress_grads=args.compress_grads)
 
     g_step = obs.registry.gauge("repro_train_step", "last training step")
     g_loss = obs.registry.gauge("repro_train_loss", "last training loss")
@@ -131,25 +177,25 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
         if step % 10 == 0:
             extra = (f" n={metrics['n']} strat={metrics['strategy']}"
                      if "n" in metrics else "")
-            print(f"step {step:5d} loss={metrics['loss']:.4f} "
-                  f"t={metrics['step_time_s'] * 1e3:.0f}ms{extra}",
-                  flush=True)
+            say(f"step {step:5d} loss={metrics['loss']:.4f} "
+                f"t={metrics['step_time_s'] * 1e3:.0f}ms{extra}",
+                flush=True)
 
     try:
         _, hist = train(cfg, steps=args.steps, batch_source=ds, opts=opts,
                         checkpointer=ck, ckpt_every=args.ckpt_every,
                         heartbeat=heartbeat, adaptive=adaptive,
-                        device=args.device)
+                        device=args.device, dist=dist)
     finally:
         if server is not None:
             server.stop()
-        if args.trace_out:
+        if args.trace_out and lead:
             obs.tracer.write(args.trace_out)
-            print(f"trace: {args.trace_out}")
-    print(f"final loss {hist[-1]['loss']:.4f} at step {hist[-1]['step']}")
+            say(f"trace: {args.trace_out}")
+    say(f"final loss {hist[-1]['loss']:.4f} at step {hist[-1]['step']}")
     if "n" in hist[-1]:                   # controller engaged (MoE arch)
-        print(f"adaptive: n={hist[-1]['n']} "
-              f"strategy={hist[-1]['strategy']}")
+        say(f"adaptive: n={hist[-1]['n']} "
+            f"strategy={hist[-1]['strategy']}")
     return hist
 
 

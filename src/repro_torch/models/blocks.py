@@ -32,8 +32,10 @@ def block_specs(cfg: ArchConfig, role: Dict):
 
 def block_apply(params, x: torch.Tensor, *, cfg: ArchConfig, role: Dict,
                 positions, mode: str = "prefill",
-                cache: Optional[dict] = None):
-    """Returns (x, aux, new_cache)."""
+                cache: Optional[dict] = None, dist=None):
+    """Returns (x, aux, new_cache). ``dist``: the ``DistContext`` the MoE
+    layer runs expert parallelism over (attention and dense layers run
+    on this rank's rows, the same on every rank of an EP group)."""
     h = norm.apply(params["mixer_norm"], x, cfg.norm)
     mix, new_cache = attention.apply(params["mixer"], h, cfg=cfg,
                                      positions=positions,
@@ -43,7 +45,8 @@ def block_apply(params, x: torch.Tensor, *, cfg: ArchConfig, role: Dict,
     aux = {}
     if role["moe"]:
         h = norm.apply(params["ffn_norm"], x, cfg.norm)
-        moe_out, aux = moe_layer.apply(params["moe"], h, cfg=cfg, mode=mode)
+        moe_out, aux = moe_layer.apply(params["moe"], h, cfg=cfg, mode=mode,
+                                       dist=dist)
         if cfg.moe.dense_residual and cfg.d_ff:
             moe_out = moe_out + ffn.apply(params["ffn"], h, act=cfg.ffn_act,
                                           gated=cfg.gated_ffn)

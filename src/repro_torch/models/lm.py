@@ -2,6 +2,13 @@
 dense-cache forward with ``prefill`` / ``decode_step`` and the paged
 forward with its two serving steps, as ``repro.models.lm``.
 
+Under a ``DistContext`` (``dist``) each rank holds its data-parallel
+replica's rows of the batch and this rank's shard of the experts
+(``convert.shard_params``); the MoE layers run expert parallelism over
+the EP group (``moe.layer``). The training loss divides by the global
+count of valid labels, so the ranks' losses sum to the loss of the
+whole batch (``loss_fn``).
+
 Depth is a Python loop over the layer periods (JAX scans a stacked
 ``periods`` axis). Parameters keep the JAX package's layouts, with the
 ``periods`` axis unstacked into a list — ``repro_torch.convert`` turns a
@@ -130,7 +137,8 @@ def _remat_wrap(fn, cfg: ArchConfig):
     raise ValueError(cfg.remat_policy)
 
 
-def _forward_train(params, tokens: torch.Tensor, cfg: ArchConfig):
+def _forward_train(params, tokens: torch.Tensor, cfg: ArchConfig,
+                   dist=None):
     dt = dtype_of(cfg.compute_dtype)
     x = embedding.embed(params["embed"], tokens, cfg, dtype=dt)
     b, s = tokens.shape
@@ -143,7 +151,7 @@ def _forward_train(params, tokens: torch.Tensor, cfg: ArchConfig):
         for i, role in enumerate(roles):
             x, a, _ = blocks.block_apply(pparams[f"l{i}"], x, cfg=cfg,
                                          role=role, positions=positions,
-                                         mode="train")
+                                         mode="train", dist=dist)
             if a:
                 aux_loss = aux_loss + a["aux_loss"]
                 z_loss = z_loss + a["z_loss"]
@@ -160,7 +168,7 @@ def _forward_train(params, tokens: torch.Tensor, cfg: ArchConfig):
 
 
 def forward(params, tokens: torch.Tensor, cfg: ArchConfig, *,
-            mode: str, cache: Optional[dict] = None):
+            mode: str, cache: Optional[dict] = None, dist=None):
     """Returns (logits, aux, new_cache).
 
     ``mode="train"`` without a cache: the whole sequence at learned
@@ -177,9 +185,15 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig, *,
     cache, ``"decode"`` one token per sequence at ``pos``; ``new_cache``
     is ``{"layers", "pos"}`` with ``pos`` advanced. ``"prefill"`` without
     a cache returns the logits only. The MoE layers run decode at n = 1
-    and prefill at the config's n, as in the JAX package."""
+    and prefill at the config's n, as in the JAX package. ``dist``: see
+    the module's docstring (dense caches only; the paged steps run on
+    one device)."""
+    if dist is not None and cache is not None and "page_table" in cache:
+        raise NotImplementedError(
+            "the paged serving path over ranks comes with ROADMAP.md's "
+            "slice 3b")
     if cache is None and mode == "train":
-        return _forward_train(params, tokens, cfg)
+        return _forward_train(params, tokens, cfg, dist)
     if cache is None and mode != "prefill":
         raise ValueError(f"mode {mode!r} needs a cache")
     dt = dtype_of(cfg.compute_dtype)
@@ -222,7 +236,7 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig, *,
                       else dict(pcache[f"l{i}"], **shared_kv))
             x, a, nc = blocks.block_apply(
                 pparams[f"l{i}"], x, cfg=cfg, role=role,
-                positions=positions, mode=mode, cache=lcache)
+                positions=positions, mode=mode, cache=lcache, dist=dist)
             for k in a:
                 aux[k] = aux[k] + a[k]
             new_pcache[f"l{i}"] = nc
@@ -238,10 +252,13 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig, *,
     return logits, aux, {"layers": new_layers, "pos": pos}
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, dist=None):
     """Mean next-token NLL over labels >= 0, in fp32, as the JAX
     package's ``cross_entropy`` (its masked reduction picks the label
-    logit; a gather picks the same value without a ``[B, S, V]`` mask)."""
+    logit; a gather picks the same value without a ``[B, S, V]`` mask).
+    Under ``dist`` with dp > 1 the count of valid labels is the whole
+    batch's (an ``all_reduce`` over the dp group), so this rank's value
+    is its share of the whole batch's mean."""
     valid = labels >= 0
     lab = torch.where(valid, labels, 0).long()
     x = logits.float()
@@ -250,20 +267,34 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
     lse = torch.log(torch.exp(shifted).sum(dim=-1))
     label_logit = shifted.gather(-1, lab[..., None])[..., 0]
     nll = lse - label_logit
-    denom = torch.clamp(valid.sum(), min=1)
+    count = valid.sum()
+    if dist is not None and dist.dp_size > 1:
+        torch.distributed.all_reduce(count, group=dist.dp_group)
+    denom = torch.clamp(count, min=1)
     return torch.where(valid, nll, 0.0).sum() / denom
 
 
-def loss_fn(params, batch: dict, cfg: ArchConfig):
+def loss_fn(params, batch: dict, cfg: ArchConfig, dist=None):
     """``batch``: ``tokens`` and ``labels`` ``[B, S]``. Returns (loss,
-    metrics ``ce``, ``aux_loss``, ``z_loss``, ``loss``)."""
-    logits, aux, _ = forward(params, batch["tokens"], cfg, mode="train")
+    metrics ``ce``, ``aux_loss``, ``z_loss``, ``loss``).
+
+    Under ``dist`` the batch is this rank's rows and ``loss`` is this
+    rank's share: its ``ce`` term over the whole batch's count of valid
+    labels plus the aux losses, averaged over the mesh; the shares of
+    the dp group sum to the whole batch's loss. The metrics are the
+    whole batch's (``ce`` summed over the dp group)."""
+    logits, aux, _ = forward(params, batch["tokens"], cfg, mode="train",
+                             dist=dist)
     labels = batch["labels"]
     logits = logits[:, -labels.shape[1]:]
-    ce = cross_entropy(logits, labels)
+    ce = cross_entropy(logits, labels, dist)
     loss = ce + aux["aux_loss"] + aux["z_loss"]
+    if dist is not None and dist.dp_size > 1:
+        ce = ce.detach().clone()
+        torch.distributed.all_reduce(ce, group=dist.dp_group)
     return loss, {"ce": ce, "aux_loss": aux["aux_loss"],
-                  "z_loss": aux["z_loss"], "loss": loss}
+                  "z_loss": aux["z_loss"],
+                  "loss": ce + aux["aux_loss"] + aux["z_loss"]}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -278,23 +309,25 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def decode_step(params, cache: dict, tokens: torch.Tensor,
-                cfg: ArchConfig):
+                cfg: ArchConfig, dist=None):
     """One token per sequence over a dense cache: tokens ``[B, 1]`` ->
-    (logits ``[B, vocab]``, cache — updated in place, ``pos`` + 1)."""
+    (logits ``[B, vocab]``, cache — updated in place, ``pos`` + 1).
+    Under ``dist`` the MoE layers run the replicated decode."""
     logits, _, new_cache = forward(params, tokens, cfg, mode="decode",
-                                   cache=cache)
+                                   cache=cache, dist=dist)
     return logits[:, -1], new_cache
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ArchConfig, max_len: int,
-            dtype=torch.bfloat16):
+            dtype=torch.bfloat16, dist=None):
     """The prompts ``[B, S]`` into a fresh dense cache of ``max_len``
     tokens (in ``dtype``, on the tokens' device). Returns (logits ``[B,
-    S, vocab]``, cache with ``pos`` = S)."""
+    S, vocab]``, cache with ``pos`` = S). Under ``dist`` the MoE layers
+    run the sharded layout (the sequence split over the EP group)."""
     cache = init_cache(cfg, tokens.shape[0], max_len, dtype,
                        device=tokens.device)
     logits, _, new_cache = forward(params, tokens, cfg, mode="prefill",
-                                   cache=cache)
+                                   cache=cache, dist=dist)
     return logits, new_cache
 
 

@@ -1,7 +1,22 @@
-"""MoE layer on one device: router + dispatch + the pipelined engine, as
-the single-device branch of ``repro.moe.layer.apply``. The expert-
-parallel ``shard_map`` entry comes with ROADMAP.md's 'Expert
-parallelism' slice."""
+"""MoE layer: router + dispatch + the pipelined engine, and the entry of
+expert parallelism, as ``repro.moe.layer``.
+
+Without ``dist`` (or on a 1 x 1 mesh) the layer runs on one device.
+Under a ``DistContext`` it stands in for the JAX layer's ``shard_map``
+(``layer.py:59-121`` there): each rank holds its data-parallel replica's
+batch rows, whole sequences, and enters the MoE with
+
+* its ``1 / ep`` slice of the sequence when ``mode != "decode"`` and the
+  sequence splits over ``ep`` (sequence-parallel MoE: every rank of the
+  EP group routes distinct tokens into the All-to-All), gathered back
+  after the layer; otherwise the EP group's tokens, replicated;
+* its experts (``shard_params``): ``E / ep`` of them, dim 0 split over
+  the EP group, and in training, where the sizes divide, each also
+  split on its last dim over the dp group (ZeRO-3, gathered inside).
+
+The aux losses are averaged (``pmean``) over the groups on which they
+vary: the dp group, and the EP group when the sequence was split.
+"""
 from __future__ import annotations
 
 from typing import Tuple
@@ -10,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.pipeline_moe import pipelined_moe
+from repro_torch.distributed import collectives as C
 from repro_torch.moe import experts as E
 from repro_torch.moe import router as R
 
@@ -21,10 +37,56 @@ def specs(cfg: ArchConfig):
     return s
 
 
+def zero3_ok(experts: dict, dist, mode: str = "train") -> bool:
+    """The JAX layer's ``zero3_ok``: training on a mesh with dp > 1 whose
+    extent divides every expert leaf's last dim (``d_expert`` and
+    ``d_model``); ``experts`` holds the whole leaves."""
+    return (mode == "train" and dist is not None and dist.dp_size > 1
+            and all(v.shape[-1] % dist.dp_size == 0
+                    for v in experts.values()))
+
+
+def expert_slice(shape, dist, zero3: bool) -> Tuple[slice, ...]:
+    """The slice of a whole expert leaf ``[E, ..., D]`` that this rank
+    holds: the counterpart of the JAX layer's ``_param_specs``."""
+    out = [slice(None)] * len(shape)
+    e_local = shape[0] // dist.ep_size
+    out[0] = slice(dist.ep_rank * e_local, (dist.ep_rank + 1) * e_local)
+    if zero3:
+        d = shape[-1] // dist.dp_size
+        out[-1] = slice(dist.dp_rank * d, (dist.dp_rank + 1) * d)
+    return tuple(out)
+
+
+def shard_params(params, dist, mode: str = "train"):
+    """One MoE layer's whole parameters -> this rank's: the expert leaves
+    sliced (copies, so the whole leaves can be freed), the router and
+    shared experts as they are (every rank holds them)."""
+    z3 = zero3_ok(params["experts"], dist, mode)
+    return dict(params, experts={
+        k: v[expert_slice(v.shape, dist, z3)].clone()
+        for k, v in params["experts"].items()})
+
+
 def apply(params, x: torch.Tensor, *, cfg: ArchConfig,
-          mode: str = "prefill") -> Tuple[torch.Tensor, dict]:
+          mode: str = "prefill", dist=None) -> Tuple[torch.Tensor, dict]:
     """x ``[B, S, M]`` -> (``[B, S, M]``, aux)."""
     b, s, d = x.shape
-    out, aux = pipelined_moe(params, x.reshape(b * s, d), cfg=cfg,
-                             mode=mode)
-    return out.reshape(b, s, d), aux
+    if dist is None or dist.world_size == 1:
+        out, aux = pipelined_moe(params, x.reshape(b * s, d), cfg=cfg,
+                                 mode=mode)
+        return out.reshape(b, s, d), aux
+    ep = dist.ep_size
+    seq = ep > 1 and mode != "decode" and s % ep == 0
+    xl = C.scatter_seq(x, dist.ep_group) if seq else x
+    out, aux = pipelined_moe(params, xl.reshape(-1, d), cfg=cfg, mode=mode,
+                             dist=dist)
+    out = out.reshape(xl.shape)
+    if seq:
+        out = C.gather_seq(out, dist.ep_group)
+    # pmean over the groups on which the value varies (None: the world)
+    if dist.dp_size > 1 or seq:
+        group = (None if seq else dist.dp_group) if dist.dp_size > 1 \
+            else dist.ep_group
+        aux = {k: C.mean(v, group) for k, v in aux.items()}
+    return out, aux

@@ -21,8 +21,26 @@ restore at start, a save every ``ckpt_every`` steps and a blocking save
 at the end, and a roll-back to the latest checkpoint when a step fails
 past its retries or in its optimizer update.
 
-Not ported yet, raising ``NotImplementedError``: int8 gradient
-compression (ROADMAP.md's 'Expert parallelism' slice).
+Under a ``DistContext`` (``dist``) each rank holds its shard of the
+parameters (``convert.shard_tree``) and takes its data-parallel rows of
+every global batch. Its loss is its share of the whole batch's
+(``lm.loss_fn``), so every gradient reduction is a sum:
+
+* dense leaves: the same on every rank of an EP group; summed over the
+  world and divided by ``ep`` (a sum over dp that leaves every replica
+  bit-equal);
+* router and shared-expert leaves, which see only this rank's tokens:
+  summed over the world;
+* expert leaves: complete per EP rank through the All-to-All's
+  transpose; a ZeRO-3 shard is summed over dp by its gather's
+  reduce-scatter, any other expert leaf by an ``all_reduce`` over dp.
+
+``compress_grads`` then quantizes the reduced gradients, as the JAX step
+does the global ones (a ZeRO-3 row takes its maximum over dp), and the
+grad norm sums each sharded leaf over its group and each replicated one
+once. Checkpoints under ``dist``, and the 8-bit AdamW and Adafactor
+where they would read rows split over ranks, raise
+``NotImplementedError`` (ROADMAP.md's slice 3b).
 """
 from __future__ import annotations
 
@@ -35,13 +53,16 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.convert import shard_tree
 from repro_torch.core.selector import Resolver
 from repro_torch.core.types import GPU_H100, HardwareSpec, Strategy
 from repro_torch.device import resolve_device
+from repro_torch.distributed.compression import compress_with_feedback
 from repro_torch.models import lm
 from repro_torch.models.module import leaves, unflatten
 from repro_torch.obs import Recorder
 from repro_torch.optim import get_optimizer, lr_schedule
+from repro_torch.optim.groups import paths
 
 log = logging.getLogger("repro_torch.runtime")
 
@@ -64,20 +85,103 @@ def _map(tree, fn):
 
 
 def init_state(cfg: ArchConfig, opts: TrainOptions, *, seed: int = 0,
-               params=None, device=None) -> Dict[str, Any]:
+               params=None, device=None, dist=None) -> Dict[str, Any]:
     """Parameters (``lm.init`` from ``seed``, or ``params`` as given —
     e.g. ``convert.from_jax`` of the JAX package's), the optimizer's
-    zero state and step 0, on ``device`` (default ``cuda``)."""
-    if opts.compress_grads:
-        raise NotImplementedError(
-            "int8 gradient compression comes with ROADMAP.md's 'Expert "
-            "parallelism' slice")
-    dev = resolve_device(device)
+    zero state and step 0, on ``device`` (default ``cuda``; under
+    ``dist`` the context's). Under ``dist`` the whole ``params`` (or the
+    seeded init, the same on every rank) are cut to this rank's shard.
+    With ``compress_grads`` the state holds ``grad_err``, the
+    compression's carried error (fp32 zeros shaped as the parameters)."""
+    dev = resolve_device(device if device is not None or dist is None
+                         else dist.device)
     if params is None:
         params = lm.init(cfg, seed, device=dev)
+    if dist is not None:
+        params = shard_tree(params, dist)
     params = _map(params, lambda p: p.detach().to(dev).requires_grad_(True))
     opt_mod, ocfg = get_optimizer(cfg.optimizer, opts.lr)
-    return {"params": params, "opt": opt_mod.init(params, ocfg), "step": 0}
+    _check_optimizer(cfg, params, dist)
+    state = {"params": params, "opt": opt_mod.init(params, ocfg), "step": 0}
+    if opts.compress_grads:
+        state["grad_err"] = _map(params, lambda p: torch.zeros(
+            p.shape, dtype=torch.float32, device=p.device))
+    return state
+
+
+def _leaf_kinds(params) -> list:
+    """Each leaf's part in the gradient reductions, in ``leaves`` order:
+    ``dense``, ``local`` (router and shared experts: this rank's tokens
+    only), ``expert`` or ``expert_z3`` (a ZeRO-3 shard)."""
+    out = []
+    for path, _ in paths(params):
+        if "moe" not in path:
+            out.append("dense")
+            continue
+        moe = _moe_of(params, path)
+        if path[path.index("moe") + 1] != "experts":
+            out.append("local")
+        elif moe["experts"]["w_up"].shape[-1] != \
+                moe["experts"]["w_down"].shape[-2]:
+            out.append("expert_z3")
+        else:
+            out.append("expert")
+    return out
+
+
+def _moe_of(params, path):
+    t = params
+    for k in path[:path.index("moe") + 1]:
+        t = t[k]
+    return t
+
+
+def _check_optimizer(cfg: ArchConfig, params, dist) -> None:
+    """The 8-bit AdamW's row scales and Adafactor's factored statistics
+    and RMS clip read whole rows and leaves; they are not reduced across
+    ranks yet."""
+    if dist is None or cfg.optimizer == "adamw":
+        return
+    kinds = set(_leaf_kinds(params))
+    if "expert_z3" in kinds or (cfg.optimizer == "adafactor"
+                                and dist.ep_size > 1):
+        raise NotImplementedError(
+            f"{cfg.optimizer} over ZeRO-3 shards (or Adafactor over "
+            f"expert-parallel ranks) comes with ROADMAP.md's slice 3b")
+
+
+def _reduce_grads(grads: list, kinds: list, dist) -> list:
+    """The gradient reductions of the module docstring (NCCL takes
+    contiguous tensors only; a backward may give a strided one)."""
+    ep = dist.ep_size
+    grads = [g.contiguous() for g in grads]
+    for g, kind in zip(grads, kinds):
+        if kind == "dense":
+            torch.distributed.all_reduce(g)
+            if ep > 1:
+                g.div_(ep)
+        elif kind == "local":
+            torch.distributed.all_reduce(g)
+        elif kind == "expert" and dist.dp_size > 1:
+            torch.distributed.all_reduce(g, group=dist.dp_group)
+    return grads
+
+
+def _grad_sq(grads: list, kinds: list, dist) -> torch.Tensor:
+    """The squared norm of the whole gradient tree: replicated leaves
+    counted once, each shard summed over the ranks it is split over."""
+    same = torch.zeros((), device=grads[0].device)
+    split = torch.zeros((), device=grads[0].device)
+    for x, kind in zip(grads, kinds):
+        if kind.startswith("expert") and dist is not None:
+            split = split + torch.sum(x * x)
+        else:
+            same = same + torch.sum(x * x)
+    if dist is not None:
+        z3 = "expert_z3" in kinds
+        torch.distributed.all_reduce(split, group=None if z3
+                                     else dist.ep_group)
+    return same + split
 
 
 def _to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, Any]:
@@ -85,14 +189,11 @@ def _to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, Any]:
             for k, v in batch.items()}
 
 
-def _step_parts(cfg: ArchConfig, opts: TrainOptions):
+def _step_parts(cfg: ArchConfig, opts: TrainOptions, dist=None):
     """The two halves of a train step: ``grads(params, batch)`` — loss and
-    backward, which write nothing — and ``update(state, grads, metrics)``,
-    which writes the parameters and moments in place."""
-    if opts.compress_grads:
-        raise NotImplementedError(
-            "int8 gradient compression comes with ROADMAP.md's 'Expert "
-            "parallelism' slice")
+    backward (and under ``dist`` the gradient reductions), which write
+    nothing — and ``update(state, grads, metrics)``, which writes the
+    parameters, moments and compression error in place."""
     opt_mod, ocfg = get_optimizer(cfg.optimizer, opts.lr)
 
     def grads_of(params, batch):
@@ -106,7 +207,7 @@ def _step_parts(cfg: ArchConfig, opts: TrainOptions):
         metrics: Dict[str, torch.Tensor] = {}
         for i in range(n):
             micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            loss, m = lm.loss_fn(params, micro, cfg)
+            loss, m = lm.loss_fn(params, micro, cfg, dist)
             g = torch.autograd.grad(loss, flat, allow_unused=True)
             g = [torch.zeros_like(p) if x is None else x.float()
                  for x, p in zip(g, flat)]
@@ -117,20 +218,31 @@ def _step_parts(cfg: ArchConfig, opts: TrainOptions):
         if n > 1:
             grads = [x / n for x in grads]
             metrics = {k: v / n for k, v in metrics.items()}
+        if dist is not None:
+            grads = _reduce_grads(grads, _leaf_kinds(params), dist)
         return grads, metrics
 
     def update(state, grads, metrics):
         params = state["params"]
+        kinds = _leaf_kinds(params)
+        new_state = dict(state)
+        if opts.compress_grads:
+            z3 = dist.dp_group if dist is not None else None
+            amax = {p for (p, _), k in zip(paths(params), kinds)
+                    if k == "expert_z3"}
+            tree, err = compress_with_feedback(
+                unflatten(params, grads), state.get("grad_err"),
+                amax_group=lambda path: z3 if path in amax else None)
+            grads = leaves(tree)
+            new_state["grad_err"] = err
         scale = lr_schedule(state["step"], warmup=opts.warmup,
                             total=opts.total_steps)
-        gnorm = torch.zeros((), device=grads[0].device)
-        for x in grads:
-            gnorm = gnorm + torch.sum(x * x)
+        gnorm = _grad_sq(grads, kinds, dist)
         # the tree, not the flat leaves: the 8-bit AdamW and Adafactor
         # read the period leaves as JAX's stacked ones (optim.groups)
         opt = opt_mod.update(unflatten(params, grads), state["opt"], params,
                              ocfg, lr_scale=scale)
-        new_state = dict(state, opt=opt, step=state["step"] + 1)
+        new_state.update(opt=opt, step=state["step"] + 1)
         out = {k: float(v) for k, v in metrics.items()}
         out.update(grad_norm=float(torch.sqrt(gnorm)), lr_scale=scale)
         return new_state, out
@@ -138,13 +250,15 @@ def _step_parts(cfg: ArchConfig, opts: TrainOptions):
     return grads_of, update
 
 
-def make_train_step(cfg: ArchConfig, opts: TrainOptions) -> Callable:
+def make_train_step(cfg: ArchConfig, opts: TrainOptions,
+                    dist=None) -> Callable:
     """``step(state, batch) -> (state, metrics)``; ``batch`` holds device
-    tensors ``tokens`` and ``labels`` ``[B, S]``. Metrics (python floats):
-    ``ce``, ``aux_loss``, ``z_loss``, ``loss``, ``grad_norm``,
-    ``lr_scale``. With ``grad_accum`` > 1 the batch is split along B and
-    the gradients and metrics are averaged over the microbatches."""
-    grads_of, update = _step_parts(cfg, opts)
+    tensors ``tokens`` and ``labels`` ``[B, S]`` (under ``dist``, this
+    rank's rows). Metrics (python floats, the whole batch's): ``ce``,
+    ``aux_loss``, ``z_loss``, ``loss``, ``grad_norm``, ``lr_scale``.
+    With ``grad_accum`` > 1 the batch is split along B and the gradients
+    and metrics are averaged over the microbatches."""
+    grads_of, update = _step_parts(cfg, opts, dist)
 
     def train_step(state, batch):
         grads, metrics = grads_of(state["params"], batch)
@@ -196,11 +310,17 @@ class AdaptiveController:
 
     ``device`` is the training device; it is read only to resolve
     ``measure="auto"`` (``None``: the card, raising without CUDA).
+
+    Under ``dist`` the EP and dp extents come from the context unless
+    the options set them (as in the JAX controller), the resolver is
+    given the whole batch's token count (JAX's batch is global), and
+    every candidate's measured time is the maximum over the world, so
+    that every rank picks the same ``(n, strategy)``.
     """
 
     def __init__(self, cfg: ArchConfig, opts: TrainOptions,
                  aopts: Optional[AdaptiveOptions] = None, *,
-                 device=None):
+                 device=None, dist=None):
         if cfg.moe is None or not cfg.moe.pipeline:
             # with pipeline=False every candidate n runs as n=1 — the
             # granularity search would be meaningless
@@ -208,7 +328,17 @@ class AdaptiveController:
                              "config (cfg.moe with pipeline=True)")
         self.cfg = cfg
         self.opts = opts
+        self.dist = dist
         self.aopts = aopts or AdaptiveOptions()
+        if dist is not None:
+            if self.aopts.ep_size == 1:
+                self.aopts = dataclasses.replace(self.aopts,
+                                                 ep_size=dist.ep_size)
+            if self.aopts.dp == 1:
+                self.aopts = dataclasses.replace(self.aopts,
+                                                 dp=dist.dp_size)
+            if device is None:
+                device = dist.device
         measure_fn = self.aopts.measure_fn
         if measure_fn is None:
             mode = self.aopts.measure
@@ -220,6 +350,8 @@ class AdaptiveController:
                                  f"simulate, not {mode!r}")
             if mode == "wallclock":
                 measure_fn = self._wallclock_measure
+        if dist is not None and measure_fn is not None:
+            measure_fn = _slowest(measure_fn, resolve_device(device))
         self.obs = (self.aopts.obs if self.aopts.obs is not None
                     else Recorder())
         self.resolver = Resolver(cfg, ep_size=self.aopts.ep_size,
@@ -253,11 +385,11 @@ class AdaptiveController:
         return tuple(sorted((k, tuple(v.shape), str(v.dtype))
                             for k, v in batch.items()))
 
-    @staticmethod
-    def _local_tokens(batch) -> int:
+    def _local_tokens(self, batch) -> int:
         x = batch["tokens"] if "tokens" in batch else \
             next(iter(batch.values()))
-        return int(x.shape[0]) * (int(x.shape[1]) if x.ndim > 1 else 1)
+        rows = int(x.shape[0]) * (self.dist.dp_size if self.dist else 1)
+        return rows * (int(x.shape[1]) if x.ndim > 1 else 1)
 
     def _cfg_with(self, n: int, strategy: str) -> ArchConfig:
         return dataclasses.replace(
@@ -283,7 +415,7 @@ class AdaptiveController:
         current stream on the card, with the host clock on the CPU."""
         state, batch = self._probe
         grads_of, _ = _step_parts(self._cfg_with(n, strategy.value),
-                                  self.opts)
+                                  self.opts, self.dist)
         params = state["params"]
 
         def once():
@@ -343,18 +475,43 @@ class AdaptiveController:
         key = (n, strategy, shape)
         fn = self._cache_get(key)
         if fn is None:
-            fn = _step_parts(self._cfg_with(n, strategy), self.opts)
+            fn = _step_parts(self._cfg_with(n, strategy), self.opts,
+                             self.dist)
             self._cache_put(key, fn)
             self.rejit_count += 1
         info.update(n=n, strategy=strategy)
         return fn, info
 
 
+def _slowest(measure_fn: Callable, device) -> Callable:
+    """``measure_fn`` whose result is the maximum over the world: the
+    ranks' clocks differ, and each must pick the same candidate."""
+    def measure(b: int, n: int, strategy: Strategy) -> float:
+        t = torch.tensor(float(measure_fn(b, n, strategy)),
+                         dtype=torch.float64, device=device)
+        torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
+        return float(t)
+    return measure
+
+
+def _rows(batch: Dict[str, np.ndarray], dist) -> Dict[str, np.ndarray]:
+    """This rank's data-parallel rows of a global batch."""
+    if dist is None or dist.dp_size == 1:
+        return batch
+    b = next(iter(batch.values())).shape[0]
+    if b % dist.dp_size:
+        raise ValueError(f"batch {b} does not split over dp="
+                         f"{dist.dp_size}")
+    n = b // dist.dp_size
+    return {k: v[dist.dp_rank * n:(dist.dp_rank + 1) * n]
+            for k, v in batch.items()}
+
+
 def train(cfg: ArchConfig, *, steps: int, batch_source,
           opts: Optional[TrainOptions] = None, checkpointer=None,
           ckpt_every: int = 100, max_retries: int = 2,
           heartbeat: Optional[Callable[[int, Dict], None]] = None,
-          state=None, adaptive=None, device=None):
+          state=None, adaptive=None, device=None, dist=None):
     """Run ``steps`` training steps with checkpoint/restart semantics.
 
     ``batch_source.batch_at(step)`` must be deterministic (seekable).
@@ -385,10 +542,18 @@ def train(cfg: ArchConfig, *, steps: int, batch_source,
     again; without a checkpoint the failure is raised. Returns (final
     state, history list of metric dicts, each with its ``step`` and
     ``step_time_s``, and with the controller its ``n``, ``strategy`` and,
-    on a retune, ``retune_time_s``)."""
+    on a retune, ``retune_time_s``).
+
+    Under ``dist`` (a ``DistContext``) ``batch_source`` yields the global
+    batch, as in the JAX loop, and each rank trains on its dp rows; the
+    state is this rank's (``init_state(dist=)``). Checkpoints under
+    ``dist`` come with ROADMAP.md's slice 3b."""
+    if dist is not None and checkpointer is not None:
+        raise NotImplementedError(
+            "checkpoints under dist come with ROADMAP.md's slice 3b")
     opts = opts or TrainOptions()
     if state is None:
-        state = init_state(cfg, opts, seed=0, device=device)
+        state = init_state(cfg, opts, seed=0, device=device, dist=dist)
     dev = leaves(state["params"])[0].device
     controller = None
     if isinstance(adaptive, AdaptiveController):
@@ -397,12 +562,14 @@ def train(cfg: ArchConfig, *, steps: int, batch_source,
         if cfg.moe is not None and cfg.moe.pipeline and (
                 cfg.moe.num_partitions == 0
                 or cfg.moe.memory_reuse_strategy == "adaptive"):
-            controller = AdaptiveController(cfg, opts, device=dev)
+            controller = AdaptiveController(cfg, opts, device=dev,
+                                            dist=dist)
     elif adaptive:
         aopts = adaptive if isinstance(adaptive, AdaptiveOptions) else None
-        controller = AdaptiveController(cfg, opts, aopts, device=dev)
+        controller = AdaptiveController(cfg, opts, aopts, device=dev,
+                                        dist=dist)
     if controller is None:
-        grads_of, update = _step_parts(cfg, opts)
+        grads_of, update = _step_parts(cfg, opts, dist)
 
     start = 0
     saved = None                    # the step whose state was saved last
@@ -416,7 +583,7 @@ def train(cfg: ArchConfig, *, steps: int, batch_source,
     history = []
     step = start
     while step < steps:
-        batch = _to_device(batch_source.batch_at(step), dev)
+        batch = _to_device(_rows(batch_source.batch_at(step), dist), dev)
         attempt = 0
         try:
             while True:

@@ -10,7 +10,9 @@ H 32, 1408 and 3072, gated and plain. Experts whose rows are all zero
 must come out exactly 0 (the kernel reads none of their weights), and a
 NaN in an otherwise zero expert must make it count as fed. The training
 chunks of moe-bert-l (M 1024, H 4096) and moe-gpt3-xl (M 2048, H 8192)
-are held forward and backward in bf16. This file
+are held forward and backward in bf16. The expert-parallel shapes (32
+experts a rank at mesh (1, 2): ``[32, 2·cap, M]`` after the dispatch
+All-to-All, ``[32, cap, M]`` in the replicated decode) are cases too. This file
 imports neither ``jax`` nor the JAX package:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \\
@@ -33,6 +35,13 @@ CASES = [  # e, c, m, h, gated, act
     (4, 100, 2048, 1408, True, "silu"),     # ragged C
     (2, 130, 768, 1408, False, "gelu"),     # two 128-row passes
     (3, 130, 64, 32, True, "gelu"),
+    # expert parallelism at mesh (1, 2), 32 experts a rank: moe-gpt3-s's
+    # training chunk after the dispatch All-to-All [32, 2 x 24, 768],
+    # DeepSeek-V2-Lite's prefill chunk [32, 2 x 8, 2048] and its
+    # replicated decode [32, 8, 2048]
+    (32, 48, 768, 3072, False, "gelu"),
+    (32, 16, 2048, 1408, True, "silu"),
+    (32, 8, 2048, 1408, True, "silu"),
 ]
 
 

@@ -176,15 +176,19 @@ def test_launcher_trains_three_steps_on_cpu(capsys):
 
 def test_unported_training_entries_raise(tmp_path):
     """What the port still lacks raises ``NotImplementedError`` naming
-    ROADMAP.md: int8 gradient compression, and a checkpoint restore onto
-    target shardings (both the expert-parallel slice's)."""
+    ROADMAP.md: checkpoints under a ``DistContext``, and a checkpoint
+    restore onto target shardings (both slice 3b's of the expert-parallel
+    item; int8 gradient compression is ported, in
+    ``tests/test_torch_compression.py``)."""
     from repro_torch.ckpt import Checkpointer
+    from repro_torch.distributed import DistContext
     _, tcfg = _cfgs()
     src = SyntheticTokens(tcfg, batch=2, seq=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train(tcfg, steps=1, batch_source=src, device="cpu",
-              opts=TrainOptions(compress_grads=True))
     ck = Checkpointer(str(tmp_path))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        train(tcfg, steps=1, batch_source=src, device="cpu", checkpointer=ck,
+              dist=DistContext(dp_size=1, ep_size=1, rank=0,
+                               device=torch.device("cpu")))
     ck.save(1, {"w": torch.zeros(2)}, block=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ck.restore(1, like={"w": torch.zeros(2)}, shardings=object())
