@@ -153,7 +153,8 @@ order; any failure ends the run with a non-zero exit and no result line:
    finite and each kernel launched its count a step; (b) the same under
    AdamW, 2 steps under remat ``nothing``, ``dots`` and ``full``: step
    0's loss equal within 1e-6 relative, peak memory ordered full <= dots
-   <= nothing (``train-memory-remat``); (c) ``adamw8bit`` with a
+   <= nothing (``train-memory-remat``); (c) ``adamw8bit`` at
+   ``CKPT_LAYERS`` layers (its disk traffic scales with depth) with a
    ``Checkpointer`` in a temporary directory, saving at steps 2 and 4;
    a run from a fresh init resumed from the step-2 checkpoint alone: the
    state it restores bit-equal to a clone taken at the save, its losses
@@ -189,8 +190,11 @@ order; any failure ends the run with a non-zero exit and no result line:
    the expert FFN's launches at the EP shapes); the train launcher
    under ``torch.distributed.run`` on NCCL (``ep-launcher``); a profile
    of the overlapped schedule (``ep-trace``: whether chunk i+1's
-   dispatch All-to-All overlaps chunk i's expert FFN); the ranks'
-   router and expert-FFN launches join the main paths' counts;
+   dispatch All-to-All overlaps chunk i's expert FFN). Each rank's
+   train and decode paths must give the expert FFN exactly the inputs
+   ``ep_phase.ffn_cases`` names (phase 3 holds the kernel at those
+   shapes) and launch the router and expert-FFN kernels once a call;
+   those launches join the main paths' counts;
 19. the ``kernels`` JSON line (the expert FFN's row carrying its EP
    shapes, ``ep``); 20. the ``ok`` JSON line, last.
 
@@ -215,6 +219,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "tools"))                 # ep_phase
 
 PEAK_BYTES_S = 3.35e12                  # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12,         # H100 SXM, no tensor cores
@@ -876,15 +881,17 @@ def train_kernel_cases(torch) -> list:
                                     dtype, seed=10 * len(rows),
                                     library=lib))
         torch.cuda.empty_cache()
-    # the expert-parallel shapes (mesh (1, 2), 32 experts a rank), after
-    # the others so that theirs keep their seeds: moe-gpt3-s's training
-    # chunk [32, 2 x 24, 768] and DeepSeek-V2-Lite's 16-token prefill
-    # chunk [32, 2 x 8, 2048]
+    # the expert-parallel shapes, after the others so that theirs keep
+    # their seeds: the inputs phase 18's paths give the expert FFN at
+    # mesh (1, 2), 32 experts a rank (``ep_phase.ffn_cases``):
+    # moe-gpt3-s's training chunk [32, 2·cap, 768], DeepSeek-V2-Lite's
+    # prefill chunk [32, 2·cap, 2048] and its replicated decode
+    # [32, cap, 2048]
+    import ep_phase
     for dtype in ("bfloat16", "float32"):
-        for case, c, m, h, gated, act in (
-                ("ep_train", 48, 768, 3072, False, "gelu"),
-                ("ep_deepseek", 16, 2048, 1408, True, "silu")):
-            rows.append(check_grouped(torch, case, 32, c, m, h, gated, act,
+        for case, ((e, c, m), h, gated, act, _) in \
+                ep_phase.ffn_cases().items():
+            rows.append(check_grouped(torch, case, e, c, m, h, gated, act,
                                       dtype, seed=10 * len(rows)))
     return rows
 
@@ -2952,6 +2959,11 @@ def memory_remat(torch, build) -> collections.Counter:
     return launches
 
 
+# the checkpoint part's depth: at 12 layers its ~12 GB written, moved
+# and read back took ~75-86 s of the script's 1,200 s
+CKPT_LAYERS = 4
+
+
 def memory_ckpt(torch, build) -> collections.Counter:
     """(c) moe-gpt3-s under ``adamw8bit`` with a ``Checkpointer`` in a
     temporary directory: 4 steps with a save at step 2 (a clone of the
@@ -3013,7 +3025,7 @@ def memory_ckpt(torch, build) -> collections.Counter:
             self.checked, self.clone = len(got), None
             return out
 
-    cfg = memory_config(optimizer="adamw8bit")
+    cfg = memory_config(optimizer="adamw8bit", num_layers=CKPT_LAYERS)
     root = tempfile.mkdtemp(prefix="train-memory-")
     du = shutil.disk_usage(root)
     log(f"train-memory-ckpt dir {root}: {du.free / 1e9:.1f} GB free of "
@@ -3670,7 +3682,6 @@ def main() -> int:
     log(f"phase 18 at {time.perf_counter() - t_start:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
-    sys.path.insert(0, str(ROOT / "tools"))
     import ep_phase
     ep_launches = ep_phase.ep_phase()
 

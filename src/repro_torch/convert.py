@@ -111,25 +111,24 @@ def _map_moe(tree, fn) -> Any:
     return tree
 
 
-def shard_tree(params: dict, dist, mode: str = "train") -> dict:
+def shard_tree(params: dict, cfg, dist, mode: str = "train") -> dict:
     """The port's whole parameter tree -> this rank's (``dist``: a
     ``DistContext``; ``mode="train"`` takes ZeRO-3 shards where the
-    JAX layer would)."""
-    return _map_moe(params, lambda p: moe_layer.shard_params(p, dist, mode))
+    JAX layer would, ``moe.layer.zero3_ok``)."""
+    return _map_moe(params, lambda p: moe_layer.shard_params(p, cfg, dist,
+                                                             mode))
 
 
-def shard_params(params_np: dict, dist, *, mode: str = "train",
+def shard_params(params_np: dict, cfg, dist, *, mode: str = "train",
                  device=None) -> dict:
     """The JAX package's whole tree (numpy) -> this rank's tree on
     ``device`` (default: the context's)."""
     return shard_tree(from_jax(params_np, device=device or dist.device),
-                      dist, mode)
+                      cfg, dist, mode)
 
 
 @torch.no_grad()
-def _gather_experts(experts: dict, dist) -> dict:
-    w_up, w_down = experts["w_up"], experts["w_down"]
-    zero3 = w_up.shape[-1] != w_down.shape[-2]
+def _gather_experts(experts: dict, dist, zero3: bool) -> dict:
     out = {}
     for k, v in experts.items():
         v = v.detach()
@@ -139,8 +138,10 @@ def _gather_experts(experts: dict, dist) -> dict:
     return out
 
 
-def gather_params(params: dict, dist) -> dict:
-    """A tree shaped as this rank's parameters (or their gradients) ->
-    the whole tree, on every rank (collective over the mesh)."""
+def gather_params(params: dict, cfg, dist, mode: str = "train") -> dict:
+    """A tree shaped as this rank's parameters (or their gradients),
+    sharded for ``mode`` -> the whole tree, on every rank (collective
+    over the mesh)."""
+    zero3 = moe_layer.zero3_ok(cfg, dist, mode)
     return _map_moe(params, lambda p: dict(
-        p, experts=_gather_experts(p["experts"], dist)))
+        p, experts=_gather_experts(p["experts"], dist, zero3)))

@@ -11,9 +11,11 @@ buckets hand this layer a config with a concrete ``(n, strategy)``
 ``"adaptive"`` as ``Strategy.NONE`` and ``num_partitions`` 0 as n = 4,
 as in the JAX package.
 
-Under expert parallelism (``dist`` with ``ep_size > 1``, each rank
-holding ``E / ep`` experts) there are two layouts, as in the JAX
-package:
+One chunk body serves one device and expert parallelism (``dist`` with
+``ep_size > 1``, each rank holding ``E / ep`` experts), as the JAX
+package's ``_chunk_fn`` does; it is split in three around its
+collectives (``_dispatch``, ``_experts``, ``_combine``), which one
+device skips:
 
 * sharded (train, prefill): each rank routes its own tokens; the
   dispatch All-to-All turns ``[ep, e_local, cap, M]`` (by destination)
@@ -24,20 +26,22 @@ package:
   All-to-All is issued asynchronously before chunk i's expert FFN and
   waited on just before chunk i+1's, and chunk i's combine All-to-All
   runs under chunk i+1's FFN (the paper's Fig. 5 pipeline; the JAX
-  package leaves it to XLA's scheduler). ``pipeline_unroll=False`` runs
-  the chunks one after another, as the JAX package's ``lax.scan``: the
-  same operations on the same data. The overlap covers the forward
-  pass; autograd runs the backward's collectives in order.
+  package leaves it to XLA's scheduler). ``pipeline_unroll=False``, and
+  one device, run the chunks one after another, as the JAX package's
+  ``lax.scan``: the same operations on the same data. The overlap
+  covers the forward pass; autograd runs the backward's collectives in
+  order.
 * replicated (decode): every rank routes the same tokens, runs its own
   experts, and an ``all_reduce`` sums the outputs.
 
-ZeRO-3 expert shards (their last dim split over ``dp``) are gathered
-once, before the chunk loop, so the backward is one reduce-scatter.
+ZeRO-3 expert shards (``moe.layer.zero3_ok``: their last dim split over
+``dp``) are gathered once, before the chunk loop, so the backward is
+one reduce-scatter.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -77,58 +81,42 @@ def strategy_of(cfg: ArchConfig) -> Strategy:
     return Strategy.NONE if s == "adaptive" else Strategy(s)
 
 
-def _chunk_fn(params, chunk: torch.Tensor, stash=None, *, cfg: ArchConfig,
-              cap: int):
-    """route and plan (one router launch) -> dispatch -> expert FFN ->
-    combine (one device). ``stash`` holds ``T_DI`` between the forward
-    pass and its recompute under S1/S3 (``strategies.restore_t_di``)."""
-    m = cfg.moe
-    t = chunk.shape[0]
-    probs, _, dest, aux = R.route_and_plan(params["router"], chunk, cfg, cap)
-    buf = restore_t_di(                                    # [E, cap, M]
-        chunk, dest, lambda: D.dispatch(chunk, dest, m.num_experts, cap),
-        stash)
-    eout = E.apply_grouped(params["experts"], buf, cfg)
-    out = D.combine(eout, dest, probs, t)
-    if m.num_shared_experts:
-        out = out + E.apply_shared(params["shared"], chunk, cfg)
-    return out, aux
-
-
 class _Chunk:
-    """One chunk of the sharded layout between its dispatch and its
-    combine: routing results, the received ``T_DI`` and the collective
-    in flight."""
+    """One chunk between its dispatch and its combine: routing results,
+    the (received) ``T_DI`` and the collective in flight."""
 
     def __init__(self, tokens, probs, dest, aux, buf, pending):
         self.tokens, self.probs, self.dest, self.aux = tokens, probs, dest, aux
         self.buf, self.pending = buf, pending
 
 
-def _ep_dispatch(params, chunk, *, cfg: ArchConfig, cap: int, group,
-                 async_op: bool = False, stash=None) -> _Chunk:
-    """route and plan -> dispatch -> the dispatch All-to-All (``T_DI``:
-    ``[ep(src)·e_local, cap, M]``). With a filled ``stash`` (the
-    recompute of S1/S3) ``T_DI`` comes from it instead."""
+def _dispatch(params, chunk, *, cfg: ArchConfig, cap: int, group,
+              async_op: bool = False, stash=None) -> _Chunk:
+    """route and plan (one router launch) -> dispatch -> under expert
+    parallelism the dispatch All-to-All over ``group`` (``None``: one
+    device, no collective). ``T_DI``: ``[ep(src)·e_local, cap, M]``. A
+    ``stash`` (S1/S3) keeps ``T_DI`` between the forward pass and its
+    recompute (``strategies.restore_t_di``)."""
     m = cfg.moe
     probs, _, dest, aux = R.route_and_plan(params["router"], chunk, cfg, cap)
     pending = C.Pending()
 
     def send():
         nonlocal pending
-        buf, pending = C.all_to_all(
-            D.dispatch(chunk, dest, m.num_experts, cap), group, async_op)
+        buf = D.dispatch(chunk, dest, m.num_experts, cap)  # [E, cap, M]
+        if group is not None:
+            buf, pending = C.all_to_all(buf, group, async_op)
         return buf
 
-    buf = send() if stash is None else restore_t_di(chunk, dest, send,
-                                                    stash, group)
+    buf = restore_t_di(chunk, dest, send, stash, group)
     return _Chunk(chunk, probs, dest, aux, buf, pending)
 
 
-def _ep_experts(params, c: _Chunk, *, cfg: ArchConfig, cap: int, ep: int,
-                group, async_op: bool = False):
+def _experts(params, c: _Chunk, *, cfg: ArchConfig, cap: int, ep: int,
+             group, async_op: bool = False):
     """``T_DI`` -> ``[e_local, ep·cap, M]`` -> expert FFN -> the combine
-    All-to-All started; returns (its output, its Pending)."""
+    All-to-All started (none on one device, where the layouts are
+    views); returns (its output, its Pending)."""
     c.pending.wait()
     e_local = cfg.moe.num_experts // ep
     m = c.buf.shape[-1]
@@ -136,11 +124,13 @@ def _ep_experts(params, c: _Chunk, *, cfg: ArchConfig, cap: int, ep: int,
         e_local, ep * cap, m)
     eout = E.apply_grouped(params["experts"], ein, cfg)   # paper's T_DO
     eout = eout.reshape(e_local, ep, cap, m).transpose(0, 1)
+    if group is None:
+        return eout, C.Pending()
     return C.all_to_all(eout, group, async_op)
 
 
-def _ep_combine(params, c: _Chunk, back, pending, *, cfg: ArchConfig,
-                cap: int):
+def _combine(params, c: _Chunk, back, pending, *, cfg: ArchConfig,
+             cap: int):
     pending.wait()
     m = cfg.moe
     out = D.combine(back.reshape(m.num_experts, cap, -1), c.dest, c.probs,
@@ -150,41 +140,40 @@ def _ep_combine(params, c: _Chunk, back, pending, *, cfg: ArchConfig,
     return out, c.aux
 
 
-def _ep_chunk(params, chunk, stash=None, *, cfg: ArchConfig, cap: int,
+def _chunk_fn(params, chunk, stash=None, *, cfg: ArchConfig, cap: int,
               ep: int, group):
-    """One chunk of the sharded layout, its collectives synchronous: the
-    serial schedule's body and the recompute of the overlapped one."""
-    c = _ep_dispatch(params, chunk, cfg=cfg, cap=cap, group=group,
-                     stash=stash)
-    back, pending = _ep_experts(params, c, cfg=cfg, cap=cap, ep=ep,
-                                group=group)
-    return _ep_combine(params, c, back, pending, cfg=cfg, cap=cap)
+    """route -> dispatch -> A2A -> expert FFN -> A2A -> combine, its
+    collectives synchronous: the serial schedule's body and what every
+    strategy recomputes."""
+    c = _dispatch(params, chunk, cfg=cfg, cap=cap, group=group, stash=stash)
+    back, pending = _experts(params, c, cfg=cfg, cap=cap, ep=ep, group=group)
+    return _combine(params, c, back, pending, cfg=cfg, cap=cap)
 
 
-def _ep_forward(params, chunks, stashes, *, cfg: ArchConfig, cap: int,
-                ep: int, group, overlap: bool):
-    """Every chunk of the sharded layout, in the pipeline's order when
-    ``overlap``: chunk i+1's dispatch is issued before chunk i's expert
-    FFN, and chunk i's combine is waited on after chunk i+1's FFN. A
-    stash (S1/S3) keeps each chunk's ``T_DI`` once it has arrived."""
+def _forward(params, chunks, stashes, *, cfg: ArchConfig, cap: int,
+             ep: int, group, overlap: bool):
+    """Every chunk, one after another, or with ``overlap`` in the
+    pipeline's order: chunk i+1's dispatch is issued before chunk i's
+    expert FFN, and chunk i's combine is waited on after chunk i+1's
+    FFN. A stash (S1/S3) keeps each chunk's ``T_DI`` once it has
+    arrived."""
     n = len(chunks)
     if not overlap:
-        return [_ep_chunk(params, chunks[i], stashes[i], cfg=cfg, cap=cap,
+        return [_chunk_fn(params, chunks[i], stashes[i], cfg=cfg, cap=cap,
                           ep=ep, group=group) for i in range(n)]
     kw = dict(cfg=cfg, cap=cap, group=group, async_op=True)
     outs = []
-    cur = _ep_dispatch(params, chunks[0], **kw)
+    cur = _dispatch(params, chunks[0], **kw)
     prev = None
     for i in range(n):
-        nxt = (_ep_dispatch(params, chunks[i + 1], **kw) if i + 1 < n
-               else None)
-        back, pending = _ep_experts(params, cur, ep=ep, **kw)
+        nxt = _dispatch(params, chunks[i + 1], **kw) if i + 1 < n else None
+        back, pending = _experts(params, cur, ep=ep, **kw)
         if stashes[i] is not None:
             stashes[i].keep(cur.buf)
         if prev is not None:
-            outs.append(_ep_combine(params, *prev, cfg=cfg, cap=cap))
+            outs.append(_combine(params, *prev, cfg=cfg, cap=cap))
         prev, cur = (cur, back, pending), nxt
-    outs.append(_ep_combine(params, *prev, cfg=cfg, cap=cap))
+    outs.append(_combine(params, *prev, cfg=cfg, cap=cap))
     return outs
 
 
@@ -212,58 +201,69 @@ def _replicated_decode(params, tokens, *, cfg: ArchConfig, ep: int,
     return out, aux
 
 
-def gather_expert_weights(params, cfg: ArchConfig, dist):
-    """The ZeRO-3 gather: expert shards split on their last dim over the
-    dp group are all-gathered once, here, outside the chunk loop, so the
-    backward pass is one reduce-scatter of the accumulated gradient."""
-    w = params["experts"]["w_up"]
-    if dist is None or dist.dp_size == 1 or w.shape[-1] == cfg.moe.d_expert:
+def gather_expert_weights(params, dp_group):
+    """The ZeRO-3 gather: expert shards split on their last dim over
+    ``dp_group`` (``None``: whole leaves, nothing to gather) are
+    all-gathered once, here, outside the chunk loop, so the backward
+    pass is one reduce-scatter of the accumulated gradient."""
+    if dp_group is None:
         return params
     return dict(params, experts={
-        k: C.gather_zero3(v, dist.dp_group)
+        k: C.all_gather(v, dp_group, -1)
         for k, v in params["experts"].items()})
 
 
-def _ep_pipeline(params, chunks, *, cfg: ArchConfig, cap: int, ep: int,
-                 group, mode: str):
-    """The sharded layout's chunks -> [(out, aux)]. Under a strategy
-    other than NONE the forward runs without a graph and each chunk is
-    recomputed in the backward pass (``strategies.recompute``): S2/S4
-    re-run the dispatch All-to-All there, S1/S3 take ``T_DI`` from the
-    host (``TdiStash``) and send its cotangent back through the reverse
-    All-to-All."""
-    overlap = cfg.moe.pipeline_unroll
+def _pipeline(params, chunks, *, cfg: ArchConfig, cap: int, ep: int,
+              group, mode: str):
+    """The chunks -> [(out, aux)] under the config's strategy
+    (``core.strategies``). The serial schedule (one device, or
+    ``pipeline_unroll=False``) wraps each chunk in ``wrap_chunk``'s
+    checkpoint. The overlapped one interleaves the chunks' forward
+    passes, so under a strategy other than NONE they run without a
+    graph and each chunk is recomputed alone in the backward pass
+    (``strategies.recompute``). Either way S2/S4 re-run the dispatch
+    (and its All-to-All), and S1/S3 take ``T_DI`` from the stash and
+    send its cotangent back through the reverse All-to-All."""
     strategy = strategy_of(cfg) if mode == "train" else Strategy.NONE
+    overlap = group is not None and cfg.moe.pipeline_unroll
     if strategy == Strategy.NONE:
-        return _ep_forward(params, chunks, [None] * len(chunks), cfg=cfg,
-                           cap=cap, ep=ep, group=group, overlap=overlap)
+        return _forward(params, chunks, [None] * len(chunks), cfg=cfg,
+                        cap=cap, ep=ep, group=group, overlap=overlap)
+
+    def chunk_fn(p, c, stash=None):
+        return _chunk_fn(p, c, stash, cfg=cfg, cap=cap, ep=ep, group=group)
+
+    if not overlap:
+        fn = wrap_chunk(chunk_fn, strategy)
+        return [fn(params, c) for c in chunks]
     keeps = "t_di" in strategy.offloads
     stashes = [TdiStash() if keeps else None for _ in chunks]
     with torch.no_grad():
-        results = _ep_forward(params, chunks, stashes, cfg=cfg, cap=cap,
-                              ep=ep, group=group, overlap=overlap)
-    return [recompute(lambda p, c, s=s: _ep_chunk(p, c, s, cfg=cfg, cap=cap,
-                                                  ep=ep, group=group),
-                      params, c, r)
+        results = _forward(params, chunks, stashes, cfg=cfg, cap=cap,
+                           ep=ep, group=group, overlap=True)
+    return [recompute(lambda p, c, s=s: chunk_fn(p, c, s), params, c, r)
             for c, s, r in zip(chunks, stashes, results)]
 
 
 def pipelined_moe(params, tokens: torch.Tensor, *, cfg: ArchConfig,
-                  mode: str = "prefill", dist=None
-                  ) -> Tuple[torch.Tensor, dict]:
+                  mode: str = "prefill", dist=None, zero3: bool = False,
+                  n: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
     """tokens ``[T_local, M]`` -> (``[T_local, M]``, aux losses averaged
     over chunks). ``mode="decode"`` runs one chunk, as in the JAX
     package; ``mode="train"`` wraps each chunk in the config's strategy.
     ``dist`` (a ``DistContext``): this rank holds ``E / ep`` experts
     (maybe ZeRO-3 shards of them) and its own tokens, or under
-    ``mode="decode"`` the EP group's tokens.
+    ``mode="decode"`` the EP group's tokens; ``zero3``: its expert
+    leaves are ZeRO-3 shards over the dp group (``moe.layer.zero3_ok``).
+    ``n``: the chunk count (default: the config's, resolved on these
+    tokens).
 
     The expert weights are cast to the compute dtype once, before the
     chunk loop (as the JAX package gathers them once outside it): a cast
     inside a chunk would keep one copy per chunk alive for backward."""
     m = cfg.moe
     dt = dtype_of(cfg.compute_dtype)
-    params = gather_expert_weights(params, cfg, dist)
+    params = gather_expert_weights(params, dist.dp_group if zero3 else None)
     params = dict(params, experts={k: v.to(dt) for k, v in
                                    params["experts"].items()})
     ep = dist.ep_size if dist is not None else 1
@@ -271,28 +271,12 @@ def pipelined_moe(params, tokens: torch.Tensor, *, cfg: ArchConfig,
         return _replicated_decode(params, tokens, cfg=cfg, ep=ep,
                                   ep_rank=dist.ep_rank, group=dist.ep_group)
     t_local = tokens.shape[0]
-    n = _resolve_partitions(cfg, t_local, mode)
+    n = n or _resolve_partitions(cfg, t_local, mode)
     chunk_t = t_local // n
     cap = capacity_for(chunk_t, m.top_k, m.capacity_factor, m.num_experts)
-    if ep > 1:
-        chunks = [tokens[i * chunk_t:(i + 1) * chunk_t] for i in range(n)]
-        outs = _ep_pipeline(params, chunks, cfg=cfg, cap=cap, ep=ep,
-                            group=dist.ep_group, mode=mode)
-        out = torch.cat([o for o, _ in outs], dim=0) if n > 1 else outs[0][0]
-        aux = {k: sum(a[k] for _, a in outs) / float(n)
-               for k in outs[0][1]}
-        return out, aux
-
-    def chunk_fn(p, c, stash=None):
-        return _chunk_fn(p, c, stash, cfg=cfg, cap=cap)
-
-    if mode == "train":
-        chunk_fn = wrap_chunk(chunk_fn, strategy_of(cfg))
-    outs, auxes = [], []
-    for i in range(n):
-        o, a = chunk_fn(params, tokens[i * chunk_t:(i + 1) * chunk_t])
-        outs.append(o)
-        auxes.append(a)
-    out = torch.cat(outs, dim=0) if n > 1 else outs[0]
-    aux = {k: sum(a[k] for a in auxes) / float(n) for k in auxes[0]}
+    chunks = [tokens[i * chunk_t:(i + 1) * chunk_t] for i in range(n)]
+    outs = _pipeline(params, chunks, cfg=cfg, cap=cap, ep=ep,
+                     group=dist.ep_group if ep > 1 else None, mode=mode)
+    out = torch.cat([o for o, _ in outs], dim=0) if n > 1 else outs[0][0]
+    aux = {k: sum(a[k] for _, a in outs) / float(n) for k in outs[0][1]}
     return out, aux

@@ -19,10 +19,15 @@ offloaded names go to pinned host memory. Here:
   the recompute instead of being re-dispatched (``_restore_t_di``).
 
 Under expert parallelism ``T_DI`` is the buffer after the dispatch
-All-to-All (the JAX package tags it there), and the chunk's forward
-pass is split around its collectives so that chunk i+1's dispatch can
-overlap chunk i's expert FFN: ``recompute`` wraps such a chunk, whose
-forward ran without a graph, and re-runs it in the backward pass.
+All-to-All (the JAX package tags it there). The overlapped schedule
+interleaves the chunks' forward passes around their collectives so that
+chunk i+1's dispatch can overlap chunk i's expert FFN, and no checkpoint
+can hold one chunk: ``recompute`` wraps such a chunk, whose forward ran
+without a graph, and re-runs it in the backward pass. The serial
+schedule (one device too) keeps the checkpoint: run through
+``recompute`` instead, full-width moe-gpt3-s's S4 training peak on an
+H100 rose from 37.3 to 38.2 GB, and the ``dots`` and ``full`` remat
+policies no longer lowered it (``chip_smoke.py`` phase 15).
 
 ``T_M`` is restored by recompute under every strategy: the fused
 ``grouped_ffn`` kernel never writes it, and its backward rebuilds it
@@ -109,7 +114,8 @@ def restore_t_di(tokens, dest, dispatch_fn: Callable[[], torch.Tensor],
     without a graph and keeps the result in the stash; a second call (the
     checkpoint's recompute) fetches it back. Both calls build the same
     graph (one ``_RestoreTdi``), as the checkpoint requires. ``group``:
-    the EP group whose dispatch All-to-All ``dispatch_fn`` ends with."""
+    the EP group whose dispatch All-to-All ``dispatch_fn`` ends with
+    (``None``: one device)."""
     if stash is None:
         return dispatch_fn()
     if stash.saved is None:

@@ -17,8 +17,10 @@ here is one such collective with its transpose as the backward pass:
   this rank's slice of the cotangent (every rank of the group computes
   the same loss from the gathered tensor, so its own slice's cotangent
   is the whole of it).
-* ``gather_zero3``: all-gather a ZeRO-3 shard along its last dim;
-  backward reduce-scatters the cotangent (a sum over the group).
+* ``all_gather``: all-gather along a dim (a ZeRO-3 expert shard along
+  its last, the dp group's batch rows along the first); backward
+  reduce-scatters the cotangent (a sum over the group: each rank's
+  cotangent of the whole tensor is its part of the loss's).
 * ``mean``: the ``pmean`` of a value over a group; backward divides the
   cotangent by the group's size and sends nothing (every rank holds the
   same cotangent of the mean).
@@ -32,15 +34,8 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["Pending", "all_to_all", "gather_dim", "gather_seq",
-           "gather_zero3", "mean", "scatter_seq"]
-
-# torch 2.13 renames the single-tensor gathers; older builds have only
-# the first names
-_ALL_GATHER = getattr(dist, "all_gather_single", None) or \
-    dist.all_gather_into_tensor
-_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
-    dist.reduce_scatter_tensor
+__all__ = ["Pending", "all_gather", "all_to_all", "gather_dim",
+           "gather_seq", "mean", "scatter_seq"]
 
 
 class Pending:
@@ -91,7 +86,7 @@ def gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     autograd)."""
     n = dist.get_world_size(group)
     buf = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
-    _ALL_GATHER(buf, x.contiguous(), group=group)
+    dist.all_gather_into_tensor(buf, x.contiguous(), group=group)
     return torch.cat(buf.chunk(n), dim=dim)
 
 
@@ -123,19 +118,19 @@ class _GatherSeq(torch.autograd.Function):
         return _slice_dim(g, ctx.group, 1), None
 
 
-class _GatherZero3(torch.autograd.Function):
+class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w, group):
-        ctx.group = group
-        return gather_dim(w, group, w.dim() - 1)
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return gather_dim(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
         n = dist.get_world_size(ctx.group)
-        parts = torch.cat(g.chunk(n, dim=-1))     # [n · dim0, ..., last / n]
+        parts = torch.cat(g.chunk(n, dim=ctx.dim))   # rank-major on dim 0
         out = parts.new_empty((parts.shape[0] // n,) + parts.shape[1:])
-        _REDUCE_SCATTER(out, parts, group=ctx.group)
-        return out, None
+        dist.reduce_scatter_tensor(out, parts.contiguous(), group=ctx.group)
+        return out, None, None
 
 
 class _Mean(torch.autograd.Function):
@@ -161,9 +156,10 @@ def gather_seq(x: torch.Tensor, group) -> torch.Tensor:
     return _GatherSeq.apply(x, group)
 
 
-def gather_zero3(w: torch.Tensor, group) -> torch.Tensor:
-    """A ZeRO-3 shard ``[..., D / n]`` -> the whole leaf ``[..., D]``."""
-    return _GatherZero3.apply(w, group)
+def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` (a ZeRO-3 shard
+    ``[..., D / n]`` -> the whole leaf ``[..., D]``)."""
+    return _AllGather.apply(x, group, dim % x.dim())
 
 
 def mean(x: torch.Tensor, group: Optional[object]) -> torch.Tensor:

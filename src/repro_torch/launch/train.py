@@ -119,7 +119,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     """Runs the launcher; returns the history of metric dicts."""
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.seq % args.mesh_model:
+        ap.error(f"--seq {args.seq} must split over --mesh-model "
+                 f"{args.mesh_model} (the MoE splits the sequence over the "
+                 f"expert-parallel ranks)")
     logging.basicConfig(level=logging.INFO)
     dist = None
     if args.mesh_data * args.mesh_model > 1 or "RANK" in os.environ:

@@ -29,8 +29,8 @@ every global batch. Its loss is its share of the whole batch's
 * dense leaves: the same on every rank of an EP group; summed over the
   world and divided by ``ep`` (a sum over dp that leaves every replica
   bit-equal);
-* router and shared-expert leaves, which see only this rank's tokens:
-  summed over the world;
+* router and shared-expert leaves, which carry only this rank's part
+  of the loss (its tokens): summed over the world;
 * expert leaves: complete per EP rank through the All-to-All's
   transpose; a ZeRO-3 shard is summed over dp by its gather's
   reduce-scatter, any other expert leaf by an ``all_reduce`` over dp.
@@ -60,6 +60,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed.compression import compress_with_feedback
 from repro_torch.models import lm
 from repro_torch.models.module import leaves, unflatten
+from repro_torch.moe.layer import zero3_ok
 from repro_torch.obs import Recorder
 from repro_torch.optim import get_optimizer, lr_schedule
 from repro_torch.optim.groups import paths
@@ -98,7 +99,7 @@ def init_state(cfg: ArchConfig, opts: TrainOptions, *, seed: int = 0,
     if params is None:
         params = lm.init(cfg, seed, device=dev)
     if dist is not None:
-        params = shard_tree(params, dist)
+        params = shard_tree(params, cfg, dist)
     params = _map(params, lambda p: p.detach().to(dev).requires_grad_(True))
     opt_mod, ocfg = get_optimizer(cfg.optimizer, opts.lr)
     _check_optimizer(cfg, params, dist)
@@ -109,31 +110,21 @@ def init_state(cfg: ArchConfig, opts: TrainOptions, *, seed: int = 0,
     return state
 
 
-def _leaf_kinds(params) -> list:
+def _leaf_kinds(params, cfg: ArchConfig, dist) -> list:
     """Each leaf's part in the gradient reductions, in ``leaves`` order:
     ``dense``, ``local`` (router and shared experts: this rank's tokens
-    only), ``expert`` or ``expert_z3`` (a ZeRO-3 shard)."""
+    only), ``expert`` or ``expert_z3`` (a ZeRO-3 shard,
+    ``moe.layer.zero3_ok``)."""
+    expert = "expert_z3" if zero3_ok(cfg, dist) else "expert"
     out = []
     for path, _ in paths(params):
         if "moe" not in path:
             out.append("dense")
-            continue
-        moe = _moe_of(params, path)
-        if path[path.index("moe") + 1] != "experts":
+        elif path[path.index("moe") + 1] != "experts":
             out.append("local")
-        elif moe["experts"]["w_up"].shape[-1] != \
-                moe["experts"]["w_down"].shape[-2]:
-            out.append("expert_z3")
         else:
-            out.append("expert")
+            out.append(expert)
     return out
-
-
-def _moe_of(params, path):
-    t = params
-    for k in path[:path.index("moe") + 1]:
-        t = t[k]
-    return t
 
 
 def _check_optimizer(cfg: ArchConfig, params, dist) -> None:
@@ -142,7 +133,7 @@ def _check_optimizer(cfg: ArchConfig, params, dist) -> None:
     ranks yet."""
     if dist is None or cfg.optimizer == "adamw":
         return
-    kinds = set(_leaf_kinds(params))
+    kinds = set(_leaf_kinds(params, cfg, dist))
     if "expert_z3" in kinds or (cfg.optimizer == "adafactor"
                                 and dist.ep_size > 1):
         raise NotImplementedError(
@@ -219,12 +210,13 @@ def _step_parts(cfg: ArchConfig, opts: TrainOptions, dist=None):
             grads = [x / n for x in grads]
             metrics = {k: v / n for k, v in metrics.items()}
         if dist is not None:
-            grads = _reduce_grads(grads, _leaf_kinds(params), dist)
+            grads = _reduce_grads(grads, _leaf_kinds(params, cfg, dist),
+                                  dist)
         return grads, metrics
 
     def update(state, grads, metrics):
         params = state["params"]
-        kinds = _leaf_kinds(params)
+        kinds = _leaf_kinds(params, cfg, dist)
         new_state = dict(state)
         if opts.compress_grads:
             z3 = dist.dp_group if dist is not None else None

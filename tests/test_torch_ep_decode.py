@@ -5,13 +5,18 @@ every rank routes its replica's tokens, runs its own experts, and an
 ``all_reduce`` sums them) with ``dist``, against the JAX package's
 ``shard_map`` path on a mesh of the same shape. Reduced
 DeepSeek-V2-Lite (MLA, top-2 of 4 experts, a shared expert) in fp32 at
-meshes (1, 2) and (2, 2), two prompts of 16 tokens, 4 greedy steps.
+meshes (1, 2) and (2, 2), two prompts of 16 tokens, 4 greedy steps. At
+mesh (2, 1) (dp only) JAX's layer runs the MoE over the global batch,
+and so does the port: prefill's chunks are the ranks' rows, and each
+decode step's one chunk is the whole batch, gathered on every rank.
 
 Each rank holds its dp rows; its logits are held to JAX's rows within
 1e-4, and its greedy tokens must equal JAX's. The capacity factor is
 the config's (1.25): prefill capacity comes from each rank's 8 tokens
 (a route may drop, as in JAX), decode's from ``max(cf, 2)``.
 """
+from concurrent.futures import ThreadPoolExecutor
+
 import jax
 import numpy as np
 import pytest
@@ -22,7 +27,7 @@ from torch_dense_harness import np_params
 from torch_ep_harness import (decode_rank, finish_jax_reference, run_ranks,
                               start_jax_reference)
 
-MESHES = ((1, 2), (2, 2))
+MESHES = ((1, 2), (2, 2), (2, 1))
 PROMPT_LEN, MAX_LEN, STEPS = 16, 24, 4
 LOGITS_TOL = 1e-4
 
@@ -44,7 +49,7 @@ params = jax.tree_util.tree_unflatten(
 prompts = jnp.asarray(data["prompts"])
 max_len, steps = int(data["max_len"]), int(data["steps"])
 out = {}
-for shape in ((1, 2), (2, 2)):
+for shape in MESHES:
     mesh = make_mesh(shape, ("data", "model"))
     dist = DistContext(mesh=mesh, dp_axes=("data",), ep_axis="model",
                        tp_axis="model")
@@ -75,16 +80,24 @@ def _run(tmp_path_factory):
     cfg = get_config("deepseek-v2-lite-16b").reduced()
     prompts = np.random.default_rng(5).integers(
         0, cfg.vocab_size, (2, PROMPT_LEN), dtype=np.int32)
-    tmp = tmp_path_factory.mktemp("ep_decode")
-    proc = start_jax_reference(
-        _JAX, tmp, dict(prompts=prompts, max_len=MAX_LEN, steps=STEPS,
-                        **{f"p{i}": x for i, x in
-                           enumerate(jax.tree_util.tree_leaves(params))}),
-        devices=4)
+    inputs = dict(prompts=prompts, max_len=MAX_LEN, steps=STEPS,
+                  **{f"p{i}": x for i, x in
+                     enumerate(jax.tree_util.tree_leaves(params))})
+    procs = {}                  # one JAX subprocess a mesh, side by side
     for mesh in MESHES:
-        _RESULTS[mesh] = run_ranks(decode_rank, mesh, params, cfg, prompts,
-                                   MAX_LEN, STEPS)
-    _RESULTS["jax"] = finish_jax_reference(proc, tmp)
+        tmp = tmp_path_factory.mktemp("ep_decode")
+        procs[mesh] = tmp, start_jax_reference(
+            f"MESHES = {(mesh,)!r}\n" + _JAX, tmp, inputs,
+            devices=mesh[0] * mesh[1])
+    with ThreadPoolExecutor(len(MESHES)) as pool:   # the meshes' ranks too
+        runs = {mesh: pool.submit(run_ranks, decode_rank, mesh, params, cfg,
+                                  prompts, MAX_LEN, STEPS)
+                for mesh in MESHES}
+        for mesh, run in runs.items():
+            _RESULTS[mesh] = run.result()
+    _RESULTS["jax"] = {}
+    for tmp, proc in procs.values():
+        _RESULTS["jax"].update(finish_jax_reference(proc, tmp))
     return _RESULTS
 
 

@@ -35,12 +35,12 @@ CASES = [  # e, c, m, h, gated, act
     (4, 100, 2048, 1408, True, "silu"),     # ragged C
     (2, 130, 768, 1408, False, "gelu"),     # two 128-row passes
     (3, 130, 64, 32, True, "gelu"),
-    # expert parallelism at mesh (1, 2), 32 experts a rank: moe-gpt3-s's
-    # training chunk after the dispatch All-to-All [32, 2 x 24, 768],
-    # DeepSeek-V2-Lite's prefill chunk [32, 2 x 8, 2048] and its
-    # replicated decode [32, 8, 2048]
-    (32, 48, 768, 3072, False, "gelu"),
-    (32, 16, 2048, 1408, True, "silu"),
+    # expert parallelism at mesh (1, 2), 32 experts a rank, as
+    # tools/ep_phase.py drives it: moe-gpt3-s's training chunk after the
+    # dispatch All-to-All [32, 2 x 16, 768], DeepSeek-V2-Lite's prefill
+    # chunk [32, 2 x 48, 2048] and its replicated decode [32, 8, 2048]
+    (32, 32, 768, 3072, False, "gelu"),
+    (32, 96, 2048, 1408, True, "silu"),
     (32, 8, 2048, 1408, True, "silu"),
 ]
 

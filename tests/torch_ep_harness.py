@@ -122,7 +122,8 @@ def _numpy(tree):
 def train_rank(ctx, params_np, tokens, labels, cfgs, lr):
     """One AdamW step at state step 1 per config: the loss, the grad
     norm, the whole (gathered) gradient and the whole parameters after
-    the step, as numpy leaves."""
+    the step, as numpy leaves; under ep > 1 whether a batch one token
+    short of a sequence that splits over the EP group raises."""
     from repro_torch.convert import from_jax, gather_params
     from repro_torch.models.module import unflatten
     from repro_torch.runtime.train_loop import (TrainOptions, _rows,
@@ -140,11 +141,19 @@ def train_rank(ctx, params_np, tokens, labels, cfgs, lr):
         grads_of, update = _step_parts(cfg, opts, ctx)
         grads, metrics = grads_of(state["params"], batch)
         whole_g = _numpy(gather_params(unflatten(state["params"], grads),
-                                       ctx))
+                                       cfg, ctx))
         state, m = update(state, grads, metrics)
         out[name] = {"loss": m["loss"], "grad_norm": m["grad_norm"],
                      "grads": whole_g,
-                     "params": _numpy(gather_params(state["params"], ctx))}
+                     "params": _numpy(gather_params(state["params"], cfg,
+                                                    ctx))}
+    if ctx.ep_size > 1:                 # a sequence that does not split
+        try:
+            grads_of(state["params"], {k: v[:, :-1] for k, v in
+                                       batch.items()})
+            out["odd_seq_raises"] = False
+        except NotImplementedError:
+            out["odd_seq_raises"] = True
     return out
 
 
@@ -154,7 +163,7 @@ def decode_rank(ctx, params_np, cfg, prompts, max_len, steps):
     from repro_torch.convert import shard_params
     from repro_torch.models import lm
     from repro_torch.runtime.train_loop import _rows
-    params = shard_params(params_np, ctx, mode="prefill")
+    params = shard_params(params_np, cfg, ctx, mode="prefill")
     rows = torch.from_numpy(_rows({"t": prompts}, ctx)["t"])
     with torch.no_grad():
         logits, cache = lm.prefill(params, rows, cfg, max_len,
@@ -231,7 +240,9 @@ def schedule_rank(ctx, cfgs, tokens, labels, timings):
         "ep_group": dist.get_process_group_ranks(ctx.ep_group),
         "dp_group": dist.get_process_group_ranks(ctx.dp_group)}}
     for name, cfg in cfgs.items():
-        params = shard_tree(lm.init(cfg, 0, device="cpu"), ctx)
+        full = lm.init(cfg, 0, device="cpu")
+        params = shard_tree(full, cfg, ctx)
+        served = shard_tree(full, cfg, ctx, mode="prefill")
         for p in leaves(params):
             p.requires_grad_(True)
         for unroll in (True, False):
@@ -243,12 +254,12 @@ def schedule_rank(ctx, cfgs, tokens, labels, timings):
                 c.moe, num_partitions=4))
             with torch.no_grad():
                 (logits, _, _), log = _events(lambda: lm.forward(
-                    params, rows["tokens"], c4, mode="prefill", dist=ctx))
+                    served, rows["tokens"], c4, mode="prefill", dist=ctx))
             out[(name, unroll)] = {
                 "loss": float(m["loss"]),
                 "grads": [g.numpy() for g in grads],
                 "whole": _numpy(gather_params(unflatten(params, grads),
-                                              ctx)),
+                                              cfg, ctx)),
                 "logits": logits.numpy(), "events": log}
     cfg = next(iter(cfgs.values()))
     mine = timings[ctx.rank]

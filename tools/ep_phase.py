@@ -15,8 +15,9 @@ host memory. The parts:
   between the two processes (an ``ep-probe`` line);
 * ``train``: full-width moe-gpt3-s (d 768, 64 experts, 32 a rank, H
   3072) at 4 layers in fp32, capacity factor 8.0 (no route drops), n =
-  2, under NONE and S4: each rank's loss and gathered gradients against
-  a one-rank run of the same batch on the card (``ep-train`` lines). The
+  2, 2 x 256 tokens, under NONE and S4: each rank's loss and gathered
+  gradients against a one-rank run of the same batch on the card
+  (``ep-train`` lines). The
   Switch aux loss is off (weight 0) here: under expert parallelism it is
   the mean of the ranks' own ``E·Σ f·p`` (as in the JAX package), not
   the one-rank value; the CPU tests hold it to JAX. Tolerances: the loss
@@ -37,11 +38,14 @@ host memory. The parts:
   schedule only: through gloo's host staging it shows neither the
   paper's speed nor its μ.
 
-Every check outside its tolerance ends the run non-zero. The EP paths'
-router and expert-FFN launches (``build.LAUNCHES``, reset just before
-each path and read just after, in each rank) are returned to the
-caller. Prints the card's name and power limit first; needs one CUDA
-card unless ``--rehearse``.
+Every check outside its tolerance ends the run non-zero. Each rank's
+train and decode paths must give the expert FFN exactly the inputs of
+``ffn_cases`` (shape and calls: one a chunk and MoE layer, twice under
+S4's recompute) and, on the card, launch the router and expert-FFN
+kernels once a call each (``build.LAUNCHES``, reset just before each
+path and read just after); those launches are returned to the caller.
+Prints the card's name and power limit first; needs one CUDA card
+unless ``--rehearse``.
 """
 import collections
 import datetime
@@ -60,6 +64,9 @@ sys.path.insert(0, str(ROOT / "src"))
 PARTS = ("probe", "train", "decode", "launcher", "trace")
 MESH = (1, 2)
 TIMEOUT = 600.0
+# the global batches: training (B, S); decode (B, prompt length, steps)
+TRAIN_BS = {False: (2, 256), True: (4, 32)}          # keyed by rehearse
+DECODE_BSN = {False: (4, 64, 4), True: (2, 16, 4)}
 
 
 def log(msg: str) -> None:
@@ -131,7 +138,7 @@ def train_check(torch, ctx, rehearse: bool) -> dict:
     from repro_torch.models.module import leaves, unflatten
     from repro_torch.runtime.train_loop import TrainOptions, _step_parts
     dev = ctx.device
-    b, s = (4, 32) if rehearse else (2, 256)
+    b, s = TRAIN_BS[rehearse]
     out = {}
     for strategy in ("none", "s4"):
         cfg = train_config(rehearse, strategy)
@@ -140,7 +147,7 @@ def train_check(torch, ctx, rehearse: bool) -> dict:
             0, cfg.vocab_size, (b, s), dtype=np.int64)).to(dev)
             for k in ("tokens", "labels")}
         full = lm.init(cfg, 0, device=dev)
-        params = shard_tree(full, ctx)
+        params = shard_tree(full, cfg, ctx)
         for p in leaves(params):
             p.requires_grad_(True)
         if ctx.rank != 0:
@@ -150,17 +157,16 @@ def train_check(torch, ctx, rehearse: bool) -> dict:
         _sync(torch, dev)
         build.reset_launches()
         t0 = time.perf_counter()
-        grads, metrics = grads_of(params, batch)
-        _sync(torch, dev)
+        with _ShapeLog() as shapes:
+            grads, metrics = grads_of(params, batch)
+            _sync(torch, dev)
         ep_ms = (time.perf_counter() - t0) * 1e3
         launches = dict(build.LAUNCHES)
-        whole = leaves(gather_params(unflatten(params, grads), ctx))
+        whole = leaves(gather_params(unflatten(params, grads), cfg, ctx))
         del grads, params
         row = {"strategy": strategy, "loss": float(metrics["loss"]),
                "ep_ms": ep_ms, "launches": launches,
-               "ffn_shape": [cfg.moe.num_experts // ctx.ep_size,
-                             ctx.ep_size * _cap(cfg, b * s // ctx.ep_size),
-                             cfg.d_model]}
+               "ffn_shapes": dict(shapes.shapes)}
         if ctx.rank == 0:
             flat = [p.requires_grad_(True) for p in leaves(full)]
             loss, m = lm.loss_fn(full, batch, cfg)
@@ -181,11 +187,46 @@ def train_check(torch, ctx, rehearse: bool) -> dict:
     return out
 
 
-def _cap(cfg, local_tokens: int) -> int:
+def _moe_layers(cfg) -> int:
+    return cfg.num_periods * sum(r["moe"] for r in cfg.layer_roles())
+
+
+def _ffn_input(cfg, chunk_tokens: int, sources: int, cf: float) -> tuple:
+    """The expert FFN's input on one rank: ``[E / ep, sources·cap, M]``."""
     from repro_torch.core.pipeline_moe import capacity_for
     m = cfg.moe
-    return capacity_for(local_tokens // m.num_partitions, m.top_k,
-                        m.capacity_factor, m.num_experts)
+    cap = capacity_for(chunk_tokens, m.top_k, cf, m.num_experts)
+    return (m.num_experts // MESH[1], sources * cap, cfg.d_model)
+
+
+def ffn_cases(rehearse: bool = False) -> dict:
+    """What the EP paths give the expert FFN on each rank: case ->
+    (input shape, H, gated, activation, calls a path), the calls per
+    strategy for training (S4 recomputes every chunk). Training's chunk
+    after the dispatch All-to-All: ``[32, 2·cap, 768]``; DeepSeek's
+    prefill chunk ``[32, 2·cap, 2048]`` and its replicated decode
+    ``[32, cap, 2048]`` (capacity factor at least 2 there)."""
+    ep = MESH[1]
+    t = train_config(rehearse, "none")
+    b, s = TRAIN_BS[rehearse]
+    n = t.moe.num_partitions
+    tl = _moe_layers(t) * n
+    d = decode_config(rehearse)
+    db, ds, steps = DECODE_BSN[rehearse]
+    dn = d.moe.num_partitions
+    act = (t.ffn_act, d.ffn_act)
+    return {
+        "ep_train": (_ffn_input(t, b * s // ep // n, ep,
+                                t.moe.capacity_factor),
+                     t.moe.d_expert, t.gated_ffn, act[0],
+                     {"none": tl, "s4": 2 * tl}),
+        "ep_prefill": (_ffn_input(d, db * ds // ep // dn, ep,
+                                  d.moe.capacity_factor),
+                       d.moe.d_expert, d.gated_ffn, act[1],
+                       _moe_layers(d) * dn),
+        "ep_decode": (_ffn_input(d, db, 1, max(d.moe.capacity_factor, 2.0)),
+                      d.moe.d_expert, d.gated_ffn, act[1],
+                      _moe_layers(d) * steps)}
 
 
 def _sync(torch, dev) -> None:
@@ -251,11 +292,11 @@ def _decode_check(torch, ctx, rehearse: bool) -> dict:
     from repro_torch.models import lm
     dev = ctx.device
     cfg = decode_config(rehearse)
-    b, s, steps = (2, 16, 4) if rehearse else (4, 64, 4)
+    b, s, steps = DECODE_BSN[rehearse]
     prompts = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (b, s), dtype=np.int64)).to(dev).int()
     full = lm.init(cfg, 0, device=dev)
-    params = shard_tree(full, ctx, mode="prefill")
+    params = shard_tree(full, cfg, ctx, mode="prefill")
     if ctx.rank != 0:
         del full
     build.reset_launches()
@@ -304,7 +345,8 @@ def trace_check(torch, ctx, rehearse: bool) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = build_tree(moe_layer.specs(cfg), gen, dev)
-    params = shard_tree({"moe": params}, ctx, mode="prefill")["moe"]
+    params = shard_tree({"moe": params}, cfg, ctx,
+                        mode="prefill")["moe"]
     dt = torch.float32 if rehearse else torch.bfloat16
     b, s = (2, 32) if rehearse else (2, 2048)
     x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev).to(dt)
@@ -461,10 +503,28 @@ def launcher_check(rehearse: bool) -> dict:
 TRAIN_RTOL, GRAD_RTOL, LOGITS_RTOL = 1e-5, 1e-4, 1e-4
 
 
+def _check_calls(what: str, row: dict, want: dict, rehearse: bool) -> None:
+    """One rank's path gave the expert FFN exactly ``want`` (input shape
+    -> calls: one a chunk and MoE layer, and again in each recompute),
+    and on the card launched the router and the expert-FFN kernel once a
+    call each."""
+    shapes = {str(list(k)): v for k, v in want.items()}
+    if row["ffn_shapes"] != shapes:
+        raise AssertionError(f"{what}: expert FFN inputs "
+                             f"{row['ffn_shapes']}, expected {shapes}")
+    calls = sum(want.values())
+    got = {k: row["launches"].get(k, 0)
+           for k in ("topk_router", "grouped_ffn")}
+    if not rehearse and got != {"topk_router": calls, "grouped_ffn": calls}:
+        raise AssertionError(f"{what}: launched {got}, expected {calls} "
+                             f"of each")
+
+
 def ep_phase(parts=PARTS, rehearse: bool = False) -> collections.Counter:
     """Runs the named parts, logs their lines, raises on a failed check;
     returns the EP paths' kernel launches, summed over ranks."""
     launches = collections.Counter()
+    cases = ffn_cases(rehearse)
     rank_parts = [p for p in parts if p != "launcher"]
     if rank_parts:
         t0 = time.perf_counter()
@@ -488,11 +548,10 @@ def ep_phase(parts=PARTS, rehearse: bool = False) -> collections.Counter:
                         and len(set(row["losses"])) == 1):
                     raise AssertionError(f"ep-train {strategy} outside its "
                                          f"tolerance")
-                for r in ranks if not rehearse else ():
-                    got = r["train"][strategy]["launches"]
-                    if got.get("topk_router", 0) < 1 or \
-                            got.get("grouped_ffn", 0) < 1:
-                        raise AssertionError(f"ep-train launched {got}")
+                shape, *_, calls = cases["ep_train"]
+                for r in ranks:
+                    _check_calls("ep-train " + strategy, r["train"][strategy],
+                                 {shape: calls[strategy]}, rehearse)
         if "decode" in parts:
             row = dict(ranks[0]["decode"], rank1_tokens_equal=(
                 ranks[1]["decode"]["tokens"] == ranks[0]["decode"]["tokens"]))
@@ -502,11 +561,10 @@ def ep_phase(parts=PARTS, rehearse: bool = False) -> collections.Counter:
             if not (row["tokens_equal"] and row["rank1_tokens_equal"]
                     and row["logits_rel_err"] <= LOGITS_RTOL):
                 raise AssertionError("ep-decode outside its tolerance")
-            for r in ranks if not rehearse else ():
-                got = r["decode"]["launches"]
-                if got.get("topk_router", 0) < 1 or \
-                        got.get("grouped_ffn", 0) < 1:
-                    raise AssertionError(f"ep-decode launched {got}")
+            want = {cases[k][0]: cases[k][-1]
+                    for k in ("ep_prefill", "ep_decode")}
+            for r in ranks:
+                _check_calls("ep-decode", r["decode"], want, rehearse)
         if "trace" in parts:
             log("ep-trace " + json.dumps(ranks[0]["trace"]))
         log("ep-seconds " + json.dumps({k: round(v, 1) for k, v in
