@@ -195,8 +195,24 @@ order; any failure ends the run with a non-zero exit and no result line:
    ``ep_phase.ffn_cases`` names (phase 3 holds the kernel at those
    shapes) and launch the router and expert-FFN kernels once a call;
    those launches join the main paths' counts;
-19. the ``kernels`` JSON line (the expert FFN's row carrying its EP
-   shapes, ``ep``); 20. the ``ok`` JSON line, last.
+19. the serving engine over ranks (``tools/serve_ranks_phase.py``, which
+   runs it alone): gloo processes sharing the card, eager decode steps.
+   Two ranks (mesh (1, 2)): full-width, full-depth moe-gpt3-s in bf16
+   over replicated pools, 8 requests, both ranks' tokens equal, each
+   rank's memory after init, the eager decode step's p50, the kernels'
+   launches a decode step and layer with the expert FFN's decode calls
+   at ``[32, 8, 768]`` (``serve-ranks``; phase 3 holds the kernel at
+   that shape); at 2 layers in fp32, capacity factor 8.0, the greedy
+   tokens of moe-gpt3-s at (1, 2) "replicated" and, over three ranks
+   (mesh (3, 1)), of moe-gpt3-s "dp" (plain, a recompute storm and an
+   offload storm) and DeepSeek-V2-Lite "dp" (plain, an offload storm)
+   equal to the one-device captured engine's and
+   ``dense_greedy_reference``'s, every shard drained
+   (``serve-ranks-exact``); each rank's KV pool bytes under "dp"
+   against "replicated" (``serve-ranks-bytes``: a third plus one sink
+   page). Its launches join the main paths' counts;
+20. the ``kernels`` JSON line (the expert FFN's row carrying its EP
+   shapes, ``ep``); 21. the ``ok`` JSON line, last.
 
 The serving phases 4-10 and 12-13 fix n = 4 (``adaptive=False``, the
 launcher's ``--num-partitions 4``), so their numbers compare with earlier
@@ -888,9 +904,17 @@ def train_kernel_cases(torch) -> list:
     # prefill chunk [32, 2·cap, 2048] and its replicated decode
     # [32, cap, 2048]
     import ep_phase
+    import serve_ranks_phase
     for dtype in ("bfloat16", "float32"):
         for case, ((e, c, m), h, gated, act, _) in \
                 ep_phase.ffn_cases().items():
+            rows.append(check_grouped(torch, case, e, c, m, h, gated, act,
+                                      dtype, seed=10 * len(rows)))
+    # the serving engine's replicated decode over two ranks (phase 19):
+    # [32, 8, 768], H 3072
+    for dtype in ("bfloat16", "float32"):
+        for case, ((e, c, m), h, gated, act) in \
+                serve_ranks_phase.ffn_cases().items():
             rows.append(check_grouped(torch, case, e, c, m, h, gated, act,
                                       dtype, seed=10 * len(rows)))
     return rows
@@ -1910,7 +1934,7 @@ def parting_report(torch, cfg, params, on, seq, upto) -> dict:
                 kv.device_lens(0), toks, c, cfg, write_sink=kv.sink_row(0))
             kv.lens[0] += c
     top = torch.topk(logits[0].float(), 2).values
-    path = on.kv._walk(on.kv._page_keys(seq[:upto]))
+    path = on.kv._walk(0, on.kv._page_keys(seq[:upto]))
     diff = 0.0
     for i, node in enumerate(path):
         mine = int(kv.page_table[0, i])
@@ -3685,8 +3709,16 @@ def main() -> int:
     import ep_phase
     ep_launches = ep_phase.ep_phase()
 
-    # -- 19. kernels line ---------------------------------------------------
+    # -- 19. the serving engine over ranks -----------------------------------
     log(f"phase 19 at {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    import serve_ranks_phase
+    with torch.no_grad():
+        ep_launches += serve_ranks_phase.serve_ranks()
+
+    # -- 20. kernels line ---------------------------------------------------
+    log(f"phase 20 at {time.perf_counter() - t_start:.1f} s")
     main_launches = (serve_launches + offload_launches + prefix_launches
                      + cancel_launches + obs_launches + deepseek_launches
                      + dense_launches + train_launches + memory_launches
@@ -3743,7 +3775,7 @@ def main() -> int:
                     and r["case"].startswith("d192")]),
     ]}), flush=True)
 
-    # -- 20. result ---------------------------------------------------------
+    # -- 21. result ---------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,7 +5,8 @@ Module map
 ----------
 ``context.py``      :class:`DistContext` (the ``(dp, ep)`` mesh's rank
                     layout and process groups), ``init_distributed``,
-                    ``make_context``, ``ep_split``.
+                    ``make_context``, ``make_serving_context``,
+                    ``ep_split``.
 ``collectives.py``  the collectives of the MoE layer as autograd
                     functions (All-to-All, sequence scatter and gather,
                     the ZeRO-3 gather, the ``pmean``), each with its
@@ -13,6 +14,8 @@ Module map
 ``compression.py``  int8 gradient compression with error feedback.
 """
 from repro_torch.distributed.context import (DistContext, ep_split,
-                                             init_distributed, make_context)
+                                             init_distributed, make_context,
+                                             make_serving_context)
 
-__all__ = ["DistContext", "ep_split", "init_distributed", "make_context"]
+__all__ = ["DistContext", "ep_split", "init_distributed", "make_context",
+           "make_serving_context"]

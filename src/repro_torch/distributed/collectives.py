@@ -26,16 +26,20 @@ here is one such collective with its transpose as the backward pass:
   same cotangent of the mean).
 
 ``group=None`` is the default (world) group.
+
+``slowest`` wraps a measure function so that its result is the world's
+maximum: what the train controller and the serving engine's resolver
+rank candidates by, so that every rank picks the same one.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["Pending", "all_gather", "all_to_all", "gather_dim",
-           "gather_seq", "mean", "scatter_seq"]
+           "gather_seq", "mean", "scatter_seq", "slowest"]
 
 
 class Pending:
@@ -165,3 +169,14 @@ def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 def mean(x: torch.Tensor, group: Optional[object]) -> torch.Tensor:
     """The mean of ``x`` over the ranks of ``group``."""
     return _Mean.apply(x, group)
+
+
+def slowest(measure_fn: Callable[..., float], device) -> Callable[..., float]:
+    """``measure_fn`` whose result is the maximum over the world: the
+    ranks' clocks differ, and each must pick the same candidate."""
+    def measure(*args) -> float:
+        t = torch.tensor(float(measure_fn(*args)), dtype=torch.float64,
+                         device=device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return float(t)
+    return measure

@@ -12,10 +12,15 @@ the JAX context's ``tp_axis`` only places activations (GSPMD layout
 hints that change no value), so every rank of an EP group runs the
 attention and dense layers on the same tokens.
 
+``make_serving_context`` is the serving engine's counterpart of the JAX
+``make_serving_context``: the ``ep_split`` of ``devices`` over the
+started group, whose size must be ``devices``.
+
 ``init_distributed`` reads the environment ``torch.distributed.run``
-sets (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
-``MASTER_PORT``) and starts NCCL on the card, gloo when the caller asks
-for ``device="cpu"``. ``make_context`` builds the groups over a default
+sets (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``,
+``MASTER_ADDR``, ``MASTER_PORT``) and starts NCCL on the cards, gloo when
+the caller asks for ``device="cpu"`` or when more ranks than cards share
+a host. ``make_context`` builds the groups over a default
 group the caller started itself (two gloo processes on one card, where
 NCCL refuses two ranks of one device).
 """
@@ -30,7 +35,8 @@ import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
-__all__ = ["DistContext", "ep_split", "init_distributed", "make_context"]
+__all__ = ["DistContext", "ep_split", "init_distributed", "make_context",
+           "make_serving_context"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,17 +108,43 @@ def make_context(mesh_data: int, mesh_model: int,
                        dp_group=dp_group)
 
 
+def make_serving_context(devices: int, *, num_experts: int = 0,
+                         device) -> Optional[DistContext]:
+    """The ``(dp, ep) = ep_split(devices, num_experts)`` context of this
+    rank for serving over ``devices`` ranks (expert parallelism over
+    ``ep``, the rest data parallelism), or None for ``devices <= 1``:
+    the one-device engine. Collective over the started default group,
+    whose size must be ``devices``."""
+    if devices <= 1:
+        return None
+    if not dist.is_initialized():
+        raise ValueError(
+            f"devices={devices} serves over {devices} torch.distributed "
+            f"ranks: start the process group first (torch.distributed.run, "
+            f"or init_process_group on every rank)")
+    world = dist.get_world_size()
+    if world != devices:
+        raise ValueError(f"devices={devices} must equal the process "
+                         f"group's world size, {world}")
+    return make_context(*ep_split(devices, num_experts), device)
+
+
 def init_distributed(mesh_data: int = 1, mesh_model: int = 1, *,
                      device=None) -> DistContext:
     """Start the default process group from ``torch.distributed.run``'s
     environment and return this rank's context. ``device`` defaults to
-    ``cuda:{LOCAL_RANK}`` (NCCL); ``"cpu"`` runs gloo."""
+    ``cuda:{LOCAL_RANK}`` (NCCL); ``"cpu"`` runs gloo, and so do more
+    local ranks than cards, which then share them (``cuda:{LOCAL_RANK %
+    cards}``: NCCL refuses two ranks of one device)."""
+    local = int(os.environ.get("LOCAL_RANK", 0))
+    cards = torch.cuda.device_count()
+    shared = 0 < cards < int(os.environ.get("LOCAL_WORLD_SIZE", 1))
     if device is None:
-        device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+        device = f"cuda:{local % cards if shared else local}"
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-        backend = "nccl"
+        backend = "gloo" if shared else "nccl"
     else:
         backend = "gloo"
     if not dist.is_initialized():

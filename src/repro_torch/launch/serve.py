@@ -56,6 +56,20 @@ Three ways to feed the engine, as the JAX launcher has them:
 * ``--http-port P``: the HTTP/SSE ingress (``serve.ingress``) until ^C,
   shedding past ``--admission-queue`` by ``--shed-policy``.
 
+Over ranks: ``--devices N`` serves the engine over the ``N`` ranks of
+``torch.distributed.run`` (``(dp, ep) = ep_split(N, experts)``; NCCL
+across cards, gloo when the ranks share a card or run on the CPU), and
+``--kv-sharding dp`` shards the KV pools over the ranks' data axis; rank
+0 prints, with a ``mesh:`` line as the JAX launcher's. The decode step
+then runs eagerly (the captured step over ranks is ROADMAP.md's Queue 1
+item 3c, and so is the HTTP ingress over ranks: ``--http-port`` with
+``--devices`` > 1 is an error). The JAX launcher's flag rules:
+``--devices`` > 1 needs ``--engine``, ``--kv-sharding dp`` needs
+``--devices`` > 1:
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \\
+        -m repro_torch.launch.serve --engine --devices 2 --kv-sharding dp
+
 In every mode ``--metrics-port`` serves live Prometheus ``/metrics``
 (started after ``warmup()``, so the capture is done before the exporter
 thread runs), ``--trace-out`` records spans and writes a
@@ -66,8 +80,11 @@ sampling and stop.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
+import sys
 import threading
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -269,6 +286,18 @@ def build_parser() -> argparse.ArgumentParser:
                          "one SSE event per generated token, client "
                          "disconnects cancel their request (0 = pick a "
                          "free port, printed at startup; -1 = disabled)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="engine: serve over the N ranks of "
+                         "torch.distributed.run, a dp x ep mesh (0 = one "
+                         "device)")
+    ap.add_argument("--kv-sharding", default="replicated",
+                    choices=["replicated", "dp"],
+                    help="engine: the KV pools over the ranks: "
+                         "'replicated' (every rank holds the whole pool) "
+                         "or 'dp' (pages sharded over the data axis: "
+                         "per-rank KV drops dp-fold, per-shard free lists, "
+                         "sticky least-loaded placement); 'dp' needs "
+                         "--devices > 1")
     ap.add_argument("--shed-policy", default="reject",
                     choices=["reject", "degrade"],
                     help="ingress: behaviour past --admission-queue: "
@@ -353,6 +382,16 @@ def main(argv: Optional[Sequence[str]] = None, *,
     weights drawn from ``--seed``."""
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.devices > 1:
+        if not args.engine:
+            ap.error("--devices requires --engine (the fixed-batch loop "
+                     "runs on one device)")
+        if args.http_port >= 0:
+            ap.error("--http-port serves one device: the ingress over ranks "
+                     "is ROADMAP.md's Queue 1 item 3c")
+    elif args.kv_sharding == "dp":
+        ap.error("--kv-sharding dp shards the KV pools over the ranks' data "
+                 "axis; it requires --devices > 1")
     if not args.engine:
         # the JAX launcher's rules: the engine's flags need --engine
         for flag, given in (
@@ -380,11 +419,29 @@ def main(argv: Optional[Sequence[str]] = None, *,
     if args.http_port >= 0 and args.rate is not None:
         ap.error("--http-port serves live clients; --rate replays a "
                  "trace: pick one")
+    cfg = configure(args)
+    if args.devices <= 1:
+        return _main(args, cfg, stop, on_ingress, params)
+    import torch
+
+    from repro_torch.distributed import ep_split, init_distributed
+    ctx = init_distributed(*ep_split(args.devices, cfg.moe.num_experts
+                                     if cfg.moe else 0), device=args.device)
+    args.device = str(ctx.device)
+    try:
+        # every rank serves; rank 0 prints
+        with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(
+                sys.stdout if ctx.rank == 0 else quiet):
+            return _main(args, cfg, stop, on_ingress, params)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _main(args, cfg: ArchConfig, stop, on_ingress, params) -> Dict:
     from repro_torch.obs import MetricsServer, Recorder, Tracer
     from repro_torch.serve import (Engine, EngineOptions, SamplingParams,
                                    run_poisson)
 
-    cfg = configure(args)
     hw = resolve_hw(args.hw)
     print(f"hw spec: {hw.name}", flush=True)
     if not args.engine:
@@ -397,6 +454,8 @@ def main(argv: Optional[Sequence[str]] = None, *,
         preempt=args.preempt, num_pages=args.num_pages,
         prefix_cache=args.prefix_cache,
         adaptive=args.num_partitions is None, obs=obs,
+        devices=args.devices, kv_sharding=args.kv_sharding,
+        decode_graph=args.devices <= 1,
         **({} if args.batch is None else {"max_slots": args.batch}))
     sampling = None
     if args.temperature > 0:
@@ -446,6 +505,15 @@ def main(argv: Optional[Sequence[str]] = None, *,
         obs.tracer.write(args.trace_out)
         print(f"trace: {args.trace_out} (load in https://ui.perfetto.dev)")
     s = engine.stats()
+    if s["devices"] > 1:
+        import torch.distributed
+        kvs = (f"DP-sharded KV x{s['kv_shards']}" if s["kv_shards"] > 1
+               else "replicated KV")
+        print(f"mesh: {s['devices']} devices = dp {s['dp_size']} x ep "
+              f"{s['ep_size']} (EP-sharded prefill, {kvs}; "
+              f"{s['per_device_cache_bytes'] / 2**20:.2f}MiB KV pool per "
+              f"device; {torch.distributed.get_backend()}, decode step "
+              f"eager)")
     if dt is not None:
         _print_replay(s, dt)
         s["wall_s"] = dt

@@ -32,10 +32,13 @@ def block_specs(cfg: ArchConfig, role: Dict):
 
 def block_apply(params, x: torch.Tensor, *, cfg: ArchConfig, role: Dict,
                 positions, mode: str = "prefill",
-                cache: Optional[dict] = None, dist=None):
+                cache: Optional[dict] = None, dist=None,
+                replicated: bool = False):
     """Returns (x, aux, new_cache). ``dist``: the ``DistContext`` the MoE
     layer runs expert parallelism over (attention and dense layers run
-    on this rank's rows, the same on every rank of an EP group)."""
+    on this rank's rows, the same on every rank of an EP group);
+    ``replicated``: the rows are the same on every rank of the dp group
+    too (``moe.layer.apply``)."""
     h = norm.apply(params["mixer_norm"], x, cfg.norm)
     mix, new_cache = attention.apply(params["mixer"], h, cfg=cfg,
                                      positions=positions,
@@ -46,7 +49,7 @@ def block_apply(params, x: torch.Tensor, *, cfg: ArchConfig, role: Dict,
     if role["moe"]:
         h = norm.apply(params["ffn_norm"], x, cfg.norm)
         moe_out, aux = moe_layer.apply(params["moe"], h, cfg=cfg, mode=mode,
-                                       dist=dist)
+                                       dist=dist, replicated=replicated)
         if cfg.moe.dense_residual and cfg.d_ff:
             moe_out = moe_out + ffn.apply(params["ffn"], h, act=cfg.ffn_act,
                                           gated=cfg.gated_ffn)

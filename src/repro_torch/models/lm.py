@@ -7,7 +7,11 @@ replica's rows of the batch and this rank's shard of the experts
 (``convert.shard_params``); the MoE layers run expert parallelism over
 the EP group (``moe.layer``). The training loss divides by the global
 count of valid labels, so the ranks' losses sum to the loss of the
-whole batch (``loss_fn``).
+whole batch (``loss_fn``). The paged serving steps run under ``dist``
+too, over this rank's pools in its own page ids (``serve.paged_kv``):
+``prefill_chunk_paged``'s one-sequence chunk is the same on every rank,
+and so is ``decode_step_paged``'s batch over replicated pools; over
+dp-sharded pools (``kv_sharded``) each rank decodes its shard's slots.
 
 Depth is a Python loop over the layer periods (JAX scans a stacked
 ``periods`` axis). Parameters keep the JAX package's layouts, with the
@@ -168,7 +172,8 @@ def _forward_train(params, tokens: torch.Tensor, cfg: ArchConfig,
 
 
 def forward(params, tokens: torch.Tensor, cfg: ArchConfig, *,
-            mode: str, cache: Optional[dict] = None, dist=None):
+            mode: str, cache: Optional[dict] = None, dist=None,
+            replicated: bool = False):
     """Returns (logits, aux, new_cache).
 
     ``mode="train"`` without a cache: the whole sequence at learned
@@ -186,12 +191,8 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig, *,
     is ``{"layers", "pos"}`` with ``pos`` advanced. ``"prefill"`` without
     a cache returns the logits only. The MoE layers run decode at n = 1
     and prefill at the config's n, as in the JAX package. ``dist``: see
-    the module's docstring (dense caches only; the paged steps run on
-    one device)."""
-    if dist is not None and cache is not None and "page_table" in cache:
-        raise NotImplementedError(
-            "the paged serving path over ranks comes with ROADMAP.md's "
-            "slice 3b")
+    the module's docstring; ``replicated``: the batch is the same on
+    every rank of the dp group (``moe.layer.apply``)."""
     if cache is None and mode == "train":
         return _forward_train(params, tokens, cfg, dist)
     if cache is None and mode != "prefill":
@@ -236,7 +237,8 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig, *,
                       else dict(pcache[f"l{i}"], **shared_kv))
             x, a, nc = blocks.block_apply(
                 pparams[f"l{i}"], x, cfg=cfg, role=role,
-                positions=positions, mode=mode, cache=lcache, dist=dist)
+                positions=positions, mode=mode, cache=lcache, dist=dist,
+                replicated=replicated)
             for k in a:
                 aux[k] = aux[k] + a[k]
             new_pcache[f"l{i}"] = nc
@@ -340,7 +342,8 @@ def init_paged_cache(cfg: ArchConfig, num_pages: int, page_size: int,
 
 def decode_step_paged(params, pools, page_table, lens, tokens,
                       cfg: ArchConfig, active=None, write_sink=None,
-                      attn_kernel: Optional[str] = None):
+                      attn_kernel: Optional[str] = None, dist=None,
+                      kv_sharded: bool = False):
     """One decode step over the whole continuous batch.
 
     pools: the per-period paged pools; page_table ``[slots, NP]``; lens
@@ -349,7 +352,9 @@ def decode_step_paged(params, pools, page_table, lens, tokens,
     KV writes land in the sink (page 0, or per-slot ``write_sink``).
     ``attn_kernel``: ``"kernel"`` runs the CUDA paged-decode kernel,
     ``"gather"`` the gather baseline; None picks ``"kernel"`` for CUDA
-    tensors and ``"gather"`` for CPU ones. Returns (last-token logits
+    tensors and ``"gather"`` for CPU ones. Under ``dist`` the slots are
+    every slot (replicated pools, the same batch on every rank) or, with
+    ``kv_sharded``, this rank's shard's. Returns (last-token logits
     ``[slots, vocab]``, pools — updated in place).
     """
     if attn_kernel is None:
@@ -361,20 +366,22 @@ def decode_step_paged(params, pools, page_table, lens, tokens,
     if write_sink is not None:
         cache["write_sink"] = write_sink
     logits, _, new_cache = forward(params, tokens, cfg, mode="decode",
-                                   cache=cache)
+                                   cache=cache, dist=dist,
+                                   replicated=not kv_sharded)
     return logits[:, -1], new_cache["layers"]
 
 
 def prefill_chunk_paged(params, pools, page_table, pos0, tokens, valid_len,
-                        cfg: ArchConfig, write_sink=None):
+                        cfg: ArchConfig, write_sink=None, dist=None):
     """One chunked-prefill step for a single sequence.
 
     tokens ``[1, C]`` (bucket-padded); page_table ``[1, NP]``; pos0
     ``[1]`` = tokens already prefilled; valid_len (int) = real tokens in
     this chunk; ``write_sink`` ``[1]`` = the sink page masked writes go
     to. Pad positions' KV writes are masked and their logits discarded.
-    Returns (logits at the last real token ``[1, vocab]``, pools —
-    updated in place).
+    Under ``dist`` every rank runs the same chunk (the MoE splits its
+    sequence over the EP group). Returns (logits at the last real token
+    ``[1, vocab]``, pools — updated in place).
     """
     c = tokens.shape[1]
     valid_len = int(valid_len)
@@ -384,5 +391,5 @@ def prefill_chunk_paged(params, pools, page_table, pos0, tokens, valid_len,
     if write_sink is not None:
         cache["write_sink"] = write_sink
     logits, _, new_cache = forward(params, tokens, cfg, mode="prefill",
-                                   cache=cache)
+                                   cache=cache, dist=dist, replicated=True)
     return logits[:, max(valid_len - 1, 0)], new_cache["layers"]

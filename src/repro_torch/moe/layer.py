@@ -20,6 +20,15 @@ batch rows, whole sequences, and:
 * with ``ep == 1`` it computes what the JAX layer's plain branch
   computes over the global batch (``_global_batch``): its chunks,
   capacities and aux losses are those of the whole batch's tokens.
+
+``replicated=True`` says that ``x`` is already the same on every rank of
+the dp group (the serving engine's batch-1 prefill chunk, and the
+decode batch over replicated pools), as a batch that the JAX layer does
+not split over ``data``. With ``ep == 1`` the MoE then runs on that
+batch as on one device; with ``ep > 1`` each dp group takes its
+``B / dp`` rows where dp divides ``B`` (the JAX layer's
+``b % dp_size == 0`` rule) and the rows are gathered back over dp after
+the layer, else every group runs the whole batch.
 """
 from __future__ import annotations
 
@@ -101,9 +110,20 @@ def _global_batch(params, x: torch.Tensor, *, cfg: ArchConfig, mode: str,
 
 
 def apply(params, x: torch.Tensor, *, cfg: ArchConfig,
-          mode: str = "prefill", dist=None) -> Tuple[torch.Tensor, dict]:
-    """x ``[B, S, M]`` -> (``[B, S, M]``, aux)."""
+          mode: str = "prefill", dist=None,
+          replicated: bool = False) -> Tuple[torch.Tensor, dict]:
+    """x ``[B, S, M]`` -> (``[B, S, M]``, aux). ``replicated``: see the
+    module docstring."""
     b, s, d = x.shape
+    if replicated and dist is not None and dist.dp_size > 1:
+        if dist.ep_size == 1:
+            dist = None                  # the plain branch, on every rank
+        elif b % dist.dp_size == 0:
+            rows = b // dist.dp_size
+            r0 = dist.dp_rank * rows
+            out, aux = apply(params, x[r0:r0 + rows], cfg=cfg, mode=mode,
+                             dist=dist)
+            return C.all_gather(out, dist.dp_group, 0), aux
     if dist is None or dist.world_size == 1:
         out, aux = pipelined_moe(params, x.reshape(b * s, d), cfg=cfg,
                                  mode=mode)

@@ -40,7 +40,7 @@ does the global ones (a ZeRO-3 row takes its maximum over dp), and the
 grad norm sums each sharded leaf over its group and each replicated one
 once. Checkpoints under ``dist``, and the 8-bit AdamW and Adafactor
 where they would read rows split over ranks, raise
-``NotImplementedError`` (ROADMAP.md's slice 3b).
+``NotImplementedError`` (ROADMAP.md's Queue 1 item 3c).
 """
 from __future__ import annotations
 
@@ -57,6 +57,7 @@ from repro_torch.convert import shard_tree
 from repro_torch.core.selector import Resolver
 from repro_torch.core.types import GPU_H100, HardwareSpec, Strategy
 from repro_torch.device import resolve_device
+from repro_torch.distributed.collectives import slowest
 from repro_torch.distributed.compression import compress_with_feedback
 from repro_torch.models import lm
 from repro_torch.models.module import leaves, unflatten
@@ -138,7 +139,7 @@ def _check_optimizer(cfg: ArchConfig, params, dist) -> None:
                                 and dist.ep_size > 1):
         raise NotImplementedError(
             f"{cfg.optimizer} over ZeRO-3 shards (or Adafactor over "
-            f"expert-parallel ranks) comes with ROADMAP.md's slice 3b")
+            f"expert-parallel ranks) comes with ROADMAP.md's Queue 1 item 3c")
 
 
 def _reduce_grads(grads: list, kinds: list, dist) -> list:
@@ -343,7 +344,7 @@ class AdaptiveController:
             if mode == "wallclock":
                 measure_fn = self._wallclock_measure
         if dist is not None and measure_fn is not None:
-            measure_fn = _slowest(measure_fn, resolve_device(device))
+            measure_fn = slowest(measure_fn, resolve_device(device))
         self.obs = (self.aopts.obs if self.aopts.obs is not None
                     else Recorder())
         self.resolver = Resolver(cfg, ep_size=self.aopts.ep_size,
@@ -475,17 +476,6 @@ class AdaptiveController:
         return fn, info
 
 
-def _slowest(measure_fn: Callable, device) -> Callable:
-    """``measure_fn`` whose result is the maximum over the world: the
-    ranks' clocks differ, and each must pick the same candidate."""
-    def measure(b: int, n: int, strategy: Strategy) -> float:
-        t = torch.tensor(float(measure_fn(b, n, strategy)),
-                         dtype=torch.float64, device=device)
-        torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
-        return float(t)
-    return measure
-
-
 def _rows(batch: Dict[str, np.ndarray], dist) -> Dict[str, np.ndarray]:
     """This rank's data-parallel rows of a global batch."""
     if dist is None or dist.dp_size == 1:
@@ -539,10 +529,10 @@ def train(cfg: ArchConfig, *, steps: int, batch_source,
     Under ``dist`` (a ``DistContext``) ``batch_source`` yields the global
     batch, as in the JAX loop, and each rank trains on its dp rows; the
     state is this rank's (``init_state(dist=)``). Checkpoints under
-    ``dist`` come with ROADMAP.md's slice 3b."""
+    ``dist`` come with ROADMAP.md's Queue 1 item 3c."""
     if dist is not None and checkpointer is not None:
         raise NotImplementedError(
-            "checkpoints under dist come with ROADMAP.md's slice 3b")
+            "checkpoints under dist come with ROADMAP.md's Queue 1 item 3c")
     opts = opts or TrainOptions()
     if state is None:
         state = init_state(cfg, opts, seed=0, device=device, dist=dist)

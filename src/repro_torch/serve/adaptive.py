@@ -12,9 +12,13 @@ hash/range-cached searcher the train-side controller uses).
 measurement Algorithm 1 ranks candidates by: the analytic pipeline
 simulator by default, or the engine's wall-clock candidate timer
 (``EngineOptions.measure="wallclock"``, the auto choice on CUDA — the
-same split the train-side ``AdaptiveOptions.measure`` makes). At
-serving time the strategy is inert: memory-reuse strategies change
-execution only under training's ``wrap_chunk``.
+same split the train-side ``AdaptiveOptions.measure`` makes). Over
+ranks (``dist``) a given measure's result is the world's maximum
+(``distributed.collectives.slowest``), as the train controller's: each
+rank times its own candidate runs, and a rank that resolved another
+``n`` would issue another sequence of All-to-Alls. At serving time the
+strategy is inert: memory-reuse strategies change execution only under
+training's ``wrap_chunk``.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.pipeline_sim import simulate
 from repro_torch.core.selector import Resolver, moe_workload
 from repro_torch.core.types import GPU_H100, HardwareSpec, Strategy
+from repro_torch.distributed.collectives import slowest
 from repro_torch.obs import Recorder
 
 log = logging.getLogger("repro_torch.serve")
@@ -50,8 +55,10 @@ class PrefillBucketAdaptive:
                  max_bucket: int = 512,
                  measure_fn: Optional[Callable[[int, int, Strategy], float]]
                  = None, shards: int = 1,
-                 obs: Optional[Recorder] = None):
+                 obs: Optional[Recorder] = None, dist=None):
         assert min_bucket > 0 and max_bucket >= min_bucket
+        if dist is not None and measure_fn is not None:
+            measure_fn = slowest(measure_fn, dist.device)
         self.cfg = cfg
         self.min_bucket = min_bucket
         self.max_bucket = max_bucket

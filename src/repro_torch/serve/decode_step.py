@@ -18,6 +18,13 @@ buffers' contents. A failed capture or replay raises; nothing falls
 back to the eager step. On the CPU, or with ``graph=False``, every call
 runs the step eagerly over the same buffers.
 
+Over ranks (``dist``) the step runs eagerly: the graph would hold the
+MoE's collectives, and NCCL inside a captured graph is ROADMAP.md's
+Queue 1 item 3c (gloo's collectives cannot be captured at all), so
+``graph=True`` under a process group raises ``NotImplementedError``.
+Each rank computes the slots of ``StateCache.decode_rows``: every slot
+over replicated pools, its shard's over dp-sharded ones.
+
 ``on_capture`` (the engine's telemetry hook) runs after each capture.
 
 Sampling stays outside the graph (its per-request generators live on
@@ -47,12 +54,20 @@ __all__ = ["DecodeStep"]
 
 class DecodeStep:
     def __init__(self, params, kv: StateCache, cfg: ArchConfig, *,
-                 attn_kernel: str, graph: bool = True,
+                 attn_kernel: str, graph: bool = True, dist=None,
                  on_capture: Optional[Callable[[], None]] = None):
+        if graph and dist is not None:
+            raise NotImplementedError(
+                "a captured decode step over ranks needs NCCL collectives "
+                "inside the CUDA graph: ROADMAP.md Queue 1 item 3c; pass "
+                "decode_graph=False")
         self.params, self.kv, self.cfg = params, kv, cfg
         self.attn_kernel = attn_kernel
-        self.tokens = StaticInput((kv.max_slots, 1), torch.int64, kv.device)
-        self.active = StaticInput((kv.max_slots,), torch.bool, kv.device)
+        self.dist = dist
+        self.rows = kv.decode_rows
+        n = len(self.rows)
+        self.tokens = StaticInput((n, 1), torch.int64, kv.device)
+        self.active = StaticInput((n,), torch.bool, kv.device)
         self.use_graph = graph and kv.device.type == "cuda"
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.logits: Optional[torch.Tensor] = None   # the graph's output
@@ -64,12 +79,14 @@ class DecodeStep:
     def __call__(self, tokens: np.ndarray, active: np.ndarray, *,
                  sink_only: bool = False) -> torch.Tensor:
         """One decode step: ``tokens`` ``[max_slots, 1]``, ``active``
-        ``[max_slots]`` (host arrays). Returns the last-token logits
-        ``[max_slots, vocab]``, valid until the next call. ``sink_only``
-        maps every page-table row to the sink and every length to 0."""
+        ``[max_slots]`` (host arrays). Returns the last-token logits of
+        the slots of ``rows`` (``[len(rows), vocab]``), valid until the
+        next call. ``sink_only`` maps every page-table row to the sink
+        and every length to 0."""
         table, lens, sinks = self.kv.decode_inputs(sink_only)
-        self.tokens.refresh(tokens)
-        self.active.refresh(active)
+        rows = slice(self.rows.start, self.rows.stop)
+        self.tokens.refresh(tokens[rows])
+        self.active.refresh(active[rows])
         with torch.no_grad():
             if not self.use_graph:
                 return self._forward(table, lens, sinks)
@@ -84,7 +101,8 @@ class DecodeStep:
         logits, _ = lm.decode_step_paged(
             self.params, self.kv.pools, table, lens, self.tokens.tensor,
             self.cfg, active=self.active.tensor, write_sink=sinks,
-            attn_kernel=self.attn_kernel)
+            attn_kernel=self.attn_kernel, dist=self.dist,
+            kv_sharded=self.kv.local_shard is not None)
         return logits
 
     def _capture(self, table, lens, sinks) -> torch.Tensor:

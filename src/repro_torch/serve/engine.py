@@ -1,5 +1,5 @@
-"""Continuous-batching serving engine with preemptive scheduling — the
-single-device part of ``repro.serve.engine``.
+"""Continuous-batching serving engine with preemptive scheduling, as
+``repro.serve.engine``.
 
 One :class:`Engine` owns the model params (a compute-dtype copy made
 once at load), a :class:`~repro_torch.serve.paged_kv.PagedKVCache` and a
@@ -77,6 +77,39 @@ captures (``DecodeStep.captures``: 0 on the CPU, 1 on the card) and
 step functions built (``prefill_builds``); a ``jit.trace`` instant marks
 each.
 
+Over ranks (``EngineOptions.devices = N > 1``): the port's counterpart
+of the JAX engine's ``(data=dp, model=ep)`` mesh is one ``Engine`` a
+rank of a started ``torch.distributed`` group of ``N`` ranks
+(``distributed.make_serving_context``: ``(dp, ep) = ep_split(N, E)``),
+all in lockstep (SPMD):
+
+* host state is the same on every rank: the allocator, the tries, the
+  scheduler and the requests are whole on every rank, and every rank
+  makes the same decisions in the same order. So every rank makes the
+  same ``submit`` calls; ``serve.trace.replay`` decides arrivals on rank
+  0. What a clock or a socket decides is decided once: a ``cancel`` is
+  taken from rank 0 and applied on every rank at the start of the next
+  step (``_agree``), and a wall-clock candidate's time is the world's
+  maximum (``serve.adaptive``);
+* device state is the rank's own: the expert weights are its EP shard
+  (``convert.shard_tree``, no ZeRO-3 in serving) and, under
+  ``kv_sharding="dp"``, its pools hold only its dp shard's pages
+  (``serve.paged_kv``);
+* a prefill chunk runs on every rank (the MoE splits its sequence over
+  the EP group); only the owning shard's ranks write its KV. A decode
+  step runs every slot on every rank over replicated pools, and only
+  its shard's slots over dp-sharded ones; the MoE runs the replicated
+  decode over the EP group;
+* every scheduler sees the same tokens by construction: the sampled
+  tokens go through one int64 all-gather, and each slot's token is taken
+  from its shard's first rank (rank 0 over replicated pools).
+
+The decode step runs eagerly over ranks (``decode_graph=True`` raises:
+ROADMAP.md Queue 1 item 3c). ``stats()`` carries the JAX engine's mesh
+keys (``devices``, ``ep_size``, ``dp_size``, ``kv_sharding``,
+``kv_shards``, ``per_device_cache_bytes``,
+``per_device_peak_kv_used_bytes``).
+
 Threads: grad mode and the current CUDA stream are per thread in
 PyTorch. ``step()`` and ``warmup()`` run under ``torch.no_grad()`` and,
 on the card, on the stream current when the engine was built, so a
@@ -85,14 +118,15 @@ launches on the stream the decode step was captured against and the
 router's per-stream state was set up on. Only one thread may drive an
 engine.
 
-Options of the JAX engine whose feature is not ported yet raise
-``NotImplementedError`` naming the ROADMAP.md slice that brings it;
-none is accepted and then ignored.
+An option whose feature is not ported yet raises
+``NotImplementedError`` naming the ROADMAP.md item that brings it; none
+is accepted and then ignored.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import logging
 import time
 import weakref
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -101,10 +135,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.convert import shard_tree
 from repro_torch.core.memory_model import PreemptionCost
 from repro_torch.core.strategies import host_offload_supported
 from repro_torch.core.types import GPU_H100, HardwareSpec, Strategy
 from repro_torch.device import dtype_of, resolve_device
+from repro_torch.distributed.collectives import gather_dim
+from repro_torch.distributed.context import make_serving_context
 from repro_torch.models import lm
 from repro_torch.models.layers.attention import ATTN_KERNELS as _KERNELS
 from repro_torch.models.module import leaves
@@ -115,6 +152,9 @@ from repro_torch.serve.paged_kv import PagedKVCache
 from repro_torch.serve.request import Request, RequestState
 from repro_torch.serve.sampling import SamplingParams, sample_tokens
 from repro_torch.serve.scheduler import Scheduler
+from repro_torch.serve.state_cache import KV_SHARDINGS
+
+log = logging.getLogger("repro_torch.serve")
 
 __all__ = ["Engine", "EngineOptions", "quantile"]
 
@@ -132,8 +172,12 @@ class EngineOptions:
     chunk: int = 64                    # prefill chunk (tokens per step)
     min_bucket: int = 8
     hw: HardwareSpec = GPU_H100        # the resolver's device model
-    ep_size: int = 1                   # resolver hints (one device:
-    dp: int = 1                        # no expert or data parallelism)
+    devices: int = 0                   # 0/1 = one device; N > 1 = the
+                                       # N ranks of the started group
+    kv_sharding: str = "replicated"    # "replicated" | "dp": the pools
+                                       # over the ranks' data axis
+    ep_size: int = 1                   # resolver hints; the mesh's
+    dp: int = 1                        # when devices > 1
     cache_size: int = 16               # LRU bound on prefill step fns
     adaptive: bool = True              # resolve (n, strategy) per bucket
     measure: str = "auto"              # auto | wallclock | simulate
@@ -152,8 +196,6 @@ class EngineOptions:
                                        # registry + no-op tracer; pass
                                        # Recorder(tracer=Tracer()) to
                                        # record Perfetto spans
-    # not ported yet: raises NotImplementedError when set
-    devices: int = 0
 
     @property
     def max_pages_per_seq(self) -> int:
@@ -169,10 +211,8 @@ class EngineOptions:
         if self.prefix_cache not in PREFIX_CACHE_MODES:
             raise ValueError(
                 f"prefix_cache must be one of {PREFIX_CACHE_MODES}")
-        if self.devices > 1:
-            raise NotImplementedError(
-                "multi-device serving comes with ROADMAP.md's 'Expert "
-                "parallelism' slice")
+        if self.kv_sharding not in KV_SHARDINGS:
+            raise ValueError(f"kv_sharding must be one of {KV_SHARDINGS}")
 
 
 class Engine:
@@ -194,20 +234,39 @@ class Engine:
         if opts.adaptive:
             cfg = force_adaptive(cfg)
         self.cfg = cfg
+        # the ranks (devices > 1): expert weights sharded over EP, the
+        # pools' layout by kv_sharding, the rest whole on every rank
+        self.dist = make_serving_context(
+            opts.devices, num_experts=cfg.moe.num_experts if cfg.moe else 0,
+            device=self.device)
+        if opts.kv_sharding == "dp" and self.dist is None:
+            raise ValueError(
+                "kv_sharding='dp' shards the KV pools over the ranks' data "
+                "axis: a one-device engine has no ranks to shard over (set "
+                "devices > 1 over a started group, or use 'replicated')")
         if params is None:       # never the fp32 tree beside its copy
-            self.params = lm.init_compute(cfg, seed, device=self.device)
+            params = lm.init_compute(cfg, seed, device=self.device)
         elif any(t.device != self.device for t in leaves(params)):
             raise ValueError(f"params must lie on the engine's device "
                              f"{self.device}")
         else:
-            self.params = lm.compute_params(params, cfg)
+            params = lm.compute_params(params, cfg)
+        if self.dist is not None and self.dist.ep_size > 1:
+            params = shard_tree(params, cfg, self.dist, mode="decode")
+        self.params = params
         del params
         self.kv = PagedKVCache(
             cfg, num_pages=opts.num_pages, page_size=opts.page_size,
             max_slots=opts.max_slots,
             max_pages_per_seq=opts.max_pages_per_seq,
-            dtype=dtype_of(cfg.compute_dtype),
-            device=self.device, prefix_cache=(opts.prefix_cache == "on"))
+            dtype=dtype_of(cfg.compute_dtype), device=self.device,
+            dist=self.dist, kv_sharding=opts.kv_sharding,
+            prefix_cache=(opts.prefix_cache == "on"))
+        if opts.kv_sharding == "dp" and self.kv.n_shards == 1:
+            log.warning(
+                "kv_sharding='dp' but the ranks' data axis has extent 1 "
+                "(ep_split gave every rank to the experts): the pools are "
+                "the replicated layout, with none of dp's KV capacity")
         self._init_metrics()
         self.scheduler = Scheduler(self.kv, chunk=opts.chunk,
                                    full_reserve=(opts.preempt == "never"),
@@ -224,11 +283,13 @@ class Engine:
 
             def measure_fn(b: int, n: int, strategy: Strategy) -> float:
                 return engine()._wallclock_measure(b, n, strategy)
+        ep_size = self.dist.ep_size if self.dist else opts.ep_size
         self.adaptive = PrefillBucketAdaptive(
-            cfg, hw=opts.hw, ep_size=opts.ep_size, dp=opts.dp,
+            cfg, hw=opts.hw, ep_size=ep_size,
+            dp=self.dist.dp_size if self.dist else opts.dp,
             min_bucket=min(opts.min_bucket, opts.chunk),
             max_bucket=opts.chunk, measure_fn=measure_fn,
-            shards=opts.ep_size, obs=self.obs)
+            shards=ep_size, obs=self.obs, dist=self.dist)
         self._prefill_fns: Dict[Tuple, Callable] = {}
         self.prefill_builds = 0
         jit, tracer = self._m_jit, self.obs.tracer     # not self: no cycle
@@ -238,7 +299,7 @@ class Engine:
             tracer.instant("jit.trace", args={"body": "decode"})
         self._decode = DecodeStep(self.params, self.kv, cfg,
                                   attn_kernel=self.attn_kernel,
-                                  graph=opts.decode_graph,
+                                  graph=opts.decode_graph, dist=self.dist,
                                   on_capture=on_capture)
         # forward FLOPs a token of the active parameters, for the
         # offload-vs-recompute preemption cost
@@ -251,6 +312,13 @@ class Engine:
         self.step_count = 0
         self._storm_tick = 0
         self.preempts: Dict[str, int] = {"recompute": 0, "offload": 0}
+        # the most requests running at once before the first preemption
+        self.peak_running_preempt_free = 0
+        # request ids whose cancel was asked for over ranks, applied at
+        # the next step (_agree)
+        self._cancels: List[int] = []
+        # tokens this rank sampled otherwise than the agreed ones
+        self.token_disagreements = 0
         # one entry per preemption: the victim, the mode applied and,
         # under "auto" with offload allowed, the two costs compared
         self.preempt_log: List[Dict[str, Any]] = []
@@ -358,9 +426,19 @@ class Engine:
         a race every disconnect meets, so not an error. Call between
         steps, on the thread that drives the engine: a cancelled slot's
         page-table row is back at the sink before the next decode step
-        copies the table in."""
+        copies the table in. Over ranks the cancel is decided on rank 0
+        (a call on another rank only reports liveness) and takes effect
+        on every rank at the start of the next step."""
         if req.state in (RequestState.DONE, RequestState.CANCELLED):
             return False
+        if self.dist is not None:
+            if self.dist.rank == 0 and req.rid not in self._cancels:
+                self._cancels.append(req.rid)
+            return True
+        self._cancel_now(req)
+        return True
+
+    def _cancel_now(self, req: Request) -> None:
         stage = self.scheduler.cancel(req)
         req.state = RequestState.CANCELLED
         req.finish_reason = "cancelled"
@@ -375,7 +453,27 @@ class Engine:
         self.cancelled.append(req)
         if req.on_done is not None:
             req.on_done(req)
-        return True
+
+    def _agree(self) -> None:
+        """Over ranks, at the start of a step: rank 0's pending cancels
+        (by request id) and its request count, broadcast; every rank
+        applies the cancels, and a rank whose submissions differ from
+        rank 0's raises instead of issuing other collectives."""
+        sch = self.scheduler
+        live = {r.rid: r for r in (list(sch.waiting) + sch.resuming
+                                   + list(sch.running.values()))}
+        payload = [(self._next_rid,
+                    [rid for rid in self._cancels if rid in live])]
+        torch.distributed.broadcast_object_list(payload, src=0)
+        next_rid, rids = payload[0]
+        self._cancels = []
+        if next_rid != self._next_rid:
+            raise RuntimeError(
+                f"rank {self.dist.rank} holds {self._next_rid} submissions, "
+                f"rank 0 {next_rid}: every rank must make the same submit "
+                f"calls")
+        for rid in rids:
+            self._cancel_now(live[rid])
 
     @property
     def has_work(self) -> bool:
@@ -419,12 +517,12 @@ class Engine:
                rcfg.moe.memory_reuse_strategy) if rcfg.moe else (bucket,)
         fn = self._prefill_fns.pop(key, None)
         if fn is None:
-            params = self.params              # not self: no cycle
+            params, dist = self.params, self.dist     # not self: no cycle
 
             def fn(pools, page_table, pos0, tokens, valid_len, sink):
                 return lm.prefill_chunk_paged(
                     params, pools, page_table, pos0, tokens, valid_len,
-                    rcfg, write_sink=sink)
+                    rcfg, write_sink=sink, dist=dist)
             self.prefill_builds += 1
             self._m_compiles.inc()
             self._m_jit.labels(body="prefill").inc()
@@ -443,7 +541,8 @@ class Engine:
         masked-write target), so every KV write lands in the sink: no
         other page, no length and no page-table row changes. One warm-up
         call, then ``measure_steps`` timed calls: CUDA events on the
-        current stream on the card, the host clock on the CPU."""
+        current stream on the card, the host clock on the CPU. Over
+        ranks the resolver takes the world's maximum of these."""
         rcfg = dataclasses.replace(
             self.cfg, moe=dataclasses.replace(
                 self.cfg.moe, num_partitions=n,
@@ -472,12 +571,15 @@ class Engine:
             return (time.perf_counter() - t0) / reps
 
     # -- preemption ------------------------------------------------------
-    def _pick_victim(self) -> Optional[Request]:
-        """Lowest priority, then youngest, among the running requests
-        that hold cache bytes exclusively (all running requests when none
+    def _pick_victim(self, shard: Optional[int] = None
+                     ) -> Optional[Request]:
+        """Lowest priority, then youngest, among the running requests (on
+        ``shard`` when given: a dry shard gains only from its own
+        victims) that hold cache bytes exclusively (all of them when none
         does: with the prefix cache every page may be shared, and a
         victim's dropped references still make trie pages evictable)."""
-        running = list(self.scheduler.running.values())
+        running = [r for r in self.scheduler.running.values()
+                   if shard is None or self.kv.shard_of_slot(r.slot) == shard]
         cands = [r for r in running if self.kv.held_bytes(r.slot) > 0]
         cands = cands or running
         if not cands:
@@ -495,7 +597,7 @@ class Engine:
             bytes_held=self.kv.held_bytes(req.slot),
             flops_per_token=self._flops_per_token, flops=hw.flops,
             host_bw=hw.host_bw, mfu=self.opts.preempt_mfu,
-            eta=hw.interference.eta_comp)
+            eta=hw.interference.eta_comp, link_shards=self.kv.n_shards)
 
     def _preempt_mode(self, cost: Optional[PreemptionCost]) -> str:
         """A fixed policy's mode, else the cost's choice; recompute where
@@ -520,9 +622,9 @@ class Engine:
     def _ensure(self, slot: int, tokens: int) -> bool:
         """Grow ``slot`` until it can hold ``tokens``, then make the pages
         it writes private (copy-on-write, a no-op with the prefix cache
-        off), preempting victims while the pool is dry. False if the
-        slot's own request was chosen as the victim (it skips this
-        step)."""
+        off), preempting victims on the slot's shard while it is dry.
+        False if the slot's own request was chosen as the victim (it
+        skips this step)."""
         while self.kv.slot_capacity(slot) < tokens:
             if self.kv.grow_slot(slot):
                 continue
@@ -534,11 +636,13 @@ class Engine:
         return True
 
     def _preempt_for(self, slot: int, why: str) -> bool:
-        """Preempt one victim for ``slot``'s sake; False if the victim
-        was ``slot``'s own request."""
-        victim = self._pick_victim()
+        """Preempt one victim on ``slot``'s shard for its sake; False if
+        the victim was ``slot``'s own request."""
+        shard = self.kv.shard_of_slot(slot)
+        victim = self._pick_victim(shard)
         if victim is None:
-            raise RuntimeError(f"page pool wedged: {why} and no victim")
+            raise RuntimeError(f"page pool wedged: KV shard {shard}: {why} "
+                               f"and no victim")
         vslot = victim.slot
         self._do_preempt(victim)
         return vslot != slot
@@ -550,6 +654,8 @@ class Engine:
         with self.obs.tracer.span("engine.step",
                                   args={"step": self.step_count}) as sp, \
                 self._thread_state():
+            if self.dist is not None:
+                self._agree()
             # storm injection (tests): preempt a victim every
             # storm_every steps, whatever the pool holds
             if (self.opts.storm_every and self.opts.preempt != "never"
@@ -561,6 +667,10 @@ class Engine:
                     if victim is not None:
                         self._do_preempt(victim)
             self.scheduler.admit()
+            if not (self.preempts["recompute"] or self.preempts["offload"]):
+                self.peak_running_preempt_free = max(
+                    self.peak_running_preempt_free,
+                    len(self.scheduler.running))
             action, req = self.scheduler.next_action()
             sp["kind"] = action
             info: Dict[str, Any] = {"kind": action}
@@ -598,8 +708,8 @@ class Engine:
                 kv.pools, kv.device_page_table(slot), kv.device_lens(slot),
                 torch.from_numpy(toks).to(self.device), c,
                 kv.sink_row(slot))
-            tok = sample_tokens(logits, [req.sampling],
-                                [len(req.output)]).tolist()[0]
+            tok = self._exchange(sample_tokens(
+                logits, [req.sampling], [len(req.output)]), slot=slot)[0]
         req.prefill_pos += c
         kv.lens[slot] += c
         self._m_prefill_tokens.inc(c)
@@ -640,9 +750,12 @@ class Engine:
             active[s] = True
             by_slot[s] = req.sampling
             positions[s] = len(req.output)
+        rows = kv.decode_rows
         with self.obs.tracer.span("decode", args={"slots": len(slots)}):
             logits = self._decode(tokens, active)
-            toks = sample_tokens(logits, by_slot, positions).tolist()
+            toks = self._exchange(sample_tokens(
+                logits, by_slot[rows.start:rows.stop],
+                positions[rows.start:rows.stop]))
         now = time.perf_counter()
         for s in slots:
             req = self.scheduler.running[s]
@@ -651,6 +764,33 @@ class Engine:
                 self._retire(req)
         self.decode_tokens += len(slots)
         return {"tokens": len(slots)}
+
+    def _exchange(self, toks: torch.Tensor,
+                  slot: Optional[int] = None) -> List[int]:
+        """This rank's sampled tokens (int64, on the device) -> the host
+        list every scheduler reads. Over ranks, one all-gather over the
+        world agrees on them: a prefill's token (``slot``) and each
+        decode slot's come from its shard's first rank (rank 0 over
+        replicated pools), so every rank sees the same tokens whatever
+        its arithmetic; ``token_disagreements`` counts this rank's own
+        samples of its shard's slots that differed."""
+        if self.dist is None:
+            return toks.tolist()
+        parts = gather_dim(toks[None], None, 0).cpu()     # [world, n]
+        kv, ep, mine = self.kv, self.dist.ep_size, parts[self.dist.rank]
+        if kv.local_shard is None:
+            agreed = ours = parts[0]
+        elif slot is not None:
+            shard = kv.shard_of_slot(slot)
+            agreed = ours = parts[shard * ep]
+            if shard != kv.local_shard:     # its KV is not on this rank
+                mine = agreed
+        else:
+            agreed = torch.cat([parts[s * ep] for s in range(kv.n_shards)])
+            rows = kv.decode_rows
+            ours = agreed[rows.start:rows.stop]
+        self.token_disagreements += int((ours != mine).sum())
+        return agreed.tolist()
 
     def _retire(self, req: Request) -> None:
         # publish the written full pages (prompt and generated turn)
@@ -723,7 +863,13 @@ class Engine:
             "free_units_by_shard": {
                 dict(c.labels)["shard"]: int(c.value)
                 for c in reg.get("repro_kv_free_units").children()},
-            "kv_shards": 1,             # one device: one shard, "0"
+            "devices": 1 if self.dist is None else self.dist.world_size,
+            "ep_size": 1 if self.dist is None else self.dist.ep_size,
+            "dp_size": 1 if self.dist is None else self.dist.dp_size,
+            "kv_sharding": self.opts.kv_sharding,
+            "kv_shards": self.kv.n_shards,
+            "decode_graph": self._decode.use_graph,
+            "token_disagreements": self.token_disagreements,
             "decode_captures": self._decode.captures,
             "decode_replays": self._decode.replays,
             "prefix_cache": self.opts.prefix_cache,
@@ -745,6 +891,10 @@ class Engine:
             "swap_in_bytes": self.kv.swap_in_bytes,
             "cache_bytes": self.kv.cache_bytes,
             "peak_kv_used_bytes": self.kv.peak_used_bytes,
+            "per_device_cache_bytes": self.kv.per_device_cache_bytes,
+            "per_device_peak_kv_used_bytes":
+                self.kv.per_device_peak_used_bytes,
+            "peak_running_preempt_free": self.peak_running_preempt_free,
             "measure": self.measure,
             "prefill_builds": self.prefill_builds,
             "resolutions": {str(b): list(r) for b, r in

@@ -63,6 +63,9 @@ class Request:
     resume_to: str = ""                    # "prefill" | "decode"
     cached_tokens: int = 0                 # KV tokens parked in host memory
     preempt_count: int = 0
+    # the KV shard placed at the first admission and kept for the
+    # request's life: every resume lands back on it (-1 = not placed)
+    kv_shard: int = -1
     # telemetry: a DECODE B-span is open on the request's trace track
     # (repro_torch.obs); its closer (preempt, retire or cancel) must
     # balance it

@@ -1,11 +1,19 @@
-"""Continuous-batching scheduler: admission, preemption, interleave — the
-single-device part of ``repro.serve.scheduler``.
+"""Continuous-batching scheduler: admission, placement, preemption,
+interleave, as ``repro.serve.scheduler``.
 
 * **Admission** is FCFS, in two reservation modes. ``full_reserve=True``
   admits a request only when its whole budget (prompt + max_new_tokens)
   can be reserved up front; ``full_reserve=False`` needs a free slot plus
   pages for the *prompt* only, decode grows page by page, and a dry pool
   makes the engine preempt a victim.
+* **Placement** over the cache's shards (``kv_sharding="dp"``): a fresh
+  request goes to the shard holding the longest cached prefix of its
+  prompt (``match_prefix``), else to the least-loaded shard with a free
+  slot that can reserve it (``best_shard``: most free pages, ties to the
+  lowest id), and keeps that shard (``Request.kv_shard``) for life:
+  every resume lands back on it. A resume blocked on its shard blocks
+  fresh admissions too. With one shard this is the single-device
+  behaviour.
 * **Preemption** (:meth:`preempt`): the victim leaves its slot as
   PREEMPTED, either dropping its pages to re-prefill its prompt plus
   generated tokens at resume (*recompute*) or parking them in host
@@ -71,46 +79,67 @@ class Scheduler:
     def has_work(self) -> bool:
         return bool(self.waiting or self.resuming or self.running)
 
-    def free_slots(self) -> List[int]:
-        return [s for s in range(self.kv.max_slots) if s not in self.running]
+    def free_slots_of(self, shard: int) -> List[int]:
+        return [s for s in self.kv.slots_of(shard)
+                if s not in self.running]
 
     # -- admission -------------------------------------------------------
+    def _place_fresh(self, req: Request
+                     ) -> Optional[Tuple[int, int, int]]:
+        """(shard, slot, tokens to reserve) for a fresh admission: the
+        shard holding the longest cached prefix of the prompt, else the
+        least-loaded shard with a free slot that fits the reservation;
+        None when no shard can take it now."""
+        need = req.total_budget if self.full_reserve else req.prompt_len
+        by_shard = {s: self.free_slots_of(s)
+                    for s in range(self.kv.n_shards)}
+        cands = [s for s, slots in by_shard.items() if slots]
+        # a cached prefix can make room the reservation lacks
+        shard, _ = self.kv.match_prefix(req.prefill_tokens, need,
+                                        candidates=cands)
+        if shard is None:
+            shard = self.kv.best_shard(need, candidates=cands)
+        if shard is None:
+            return None
+        return shard, by_shard[shard][0], need
+
     def admit(self) -> List[Request]:
         """Move resumable, then QUEUED, requests into free slots while the
-        page budget holds (FCFS, head-of-line blocking)."""
+        page budget holds (FCFS, head-of-line blocking). Resumes go back
+        to their own shard; fresh requests are placed by
+        :meth:`_place_fresh`."""
         admitted = []
         while True:
-            slots = self.free_slots()
-            if not slots:
-                break
-            slot = slots[0]
             if self.resuming:
                 req = min(self.resuming, key=lambda r: r.rid)
+                slots = self.free_slots_of(req.kv_shard)
+                if not slots:
+                    break
                 if req.preempt_mode == "offload":
                     if not self.kv.can_restore(req.rid):
                         break
-                elif not self.kv.can_admit(req.prefill_len):
+                elif not self.kv.can_admit(req.prefill_len, req.kv_shard):
                     break
+                slot = slots[0]
                 self._admit_resume(req, slot)
             elif self.waiting:
                 req = self.waiting[0]
-                need = (req.total_budget if self.full_reserve
-                        else req.prompt_len)
-                # a cached prefix can make room the reservation lacks
-                hit, _ = self.kv.match_prefix(req.prefill_tokens, need)
-                if hit is None and not self.kv.can_admit(need):
+                placement = self._place_fresh(req)
+                if placement is None:
                     break
+                shard, slot, need = placement
                 cached = self.kv.alloc_slot_prefix(
                     slot, need, req.prefill_tokens,
                     page_aligned=self.full_reserve)
                 req.prefill_pos = cached        # skip the cached prefix
                 self.waiting.popleft()
+                req.kv_shard = shard
                 req.state = RequestState.PREFILL
                 self._m_admits.labels(kind="fresh").inc()
                 tracer = self.obs.tracer
                 tracer.thread_name(PID_REQUESTS, req.rid, f"req {req.rid}")
                 tracer.instant("ADMIT", pid=PID_REQUESTS, tid=req.rid,
-                               args={"shard": 0, "slot": slot,
+                               args={"shard": shard, "slot": slot,
                                      "reserved_tokens": need,
                                      "cached_tokens": cached})
             else:
@@ -150,7 +179,7 @@ class Scheduler:
         """Evict a running request: free (``"recompute"``) or offload
         (``"offload"``) its pages and move it to the resume queue.
         Returns the mode applied: an offload of a request with no cached
-        tokens is a recompute."""
+        tokens is a recompute. The request keeps its ``kv_shard``."""
         if mode not in ("recompute", "offload"):
             raise ValueError(f"preempt mode must be recompute or offload, "
                              f"got {mode!r}")

@@ -1,6 +1,6 @@
 """The ``StateCache`` protocol: per-request device state behind one
 slot-indexed surface, so ``Engine`` and ``Scheduler`` never see a
-concrete cache — the single-device part of ``repro.serve.state_cache``.
+concrete cache — the paged part of ``repro.serve.state_cache``.
 
 What the engine needs from "the cache": slot lifecycle (``alloc_slot``
 / ``grow_slot`` / ``free_slot`` and the host ``lens`` array), admission
@@ -16,6 +16,19 @@ prefill's ``device_page_table``, ``device_lens``, ``sink_row``; decode's
 and composite caches come with ROADMAP.md's 'Other architectures'
 slice.
 
+Shard topology (``kv_sharding``, the JAX module's ``:79-125``): slots
+partition over ``n_shards`` — the mesh's dp extent under ``"dp"``, else
+1, or the ``shards=`` override that tests the allocator without ranks —
+and round up to a multiple of it; slot ``i`` belongs to shard ``i //
+slots_per_shard`` (``shard_of_slot``, ``slots_of``). Placement asks
+``can_admit(total, shard)`` and ``best_shard``. Over ranks (``dist``, a
+``DistContext``) the host state is the same on every rank and every
+rank makes the same calls; under ``"dp"`` with more than one shard this
+rank's device pools hold only the pages of its shard ``local_shard``
+(``dist.dp_rank``) and it decodes only that shard's slots
+(``decode_rows``). Otherwise ``local_shard`` is None: the pools hold
+every page and every slot is decoded.
+
 The decode step's inputs are :class:`StaticInput` buffers: device
 tensors whose addresses never change, refreshed in place every step, so
 a CUDA graph captured over them stays valid. Prefill makes fresh
@@ -24,12 +37,18 @@ tensors, since it runs eagerly.
 from __future__ import annotations
 
 import abc
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["StateCache", "StaticInput"]
+__all__ = ["KV_SHARDINGS", "StateCache", "StaticInput"]
+
+KV_SHARDINGS = ("replicated", "dp")
+
+
+def _round_up(x: int, mult: int) -> int:
+    return -(-int(x) // mult) * mult
 
 
 class StaticInput:
@@ -60,18 +79,54 @@ class StaticInput:
 class StateCache(abc.ABC):
     """Abstract per-request device-state cache (see module docstring).
 
-    The base class owns the slot count, the device, and the host
-    ``lens`` array the engine mutates in place.
+    The base class owns the shard topology, the slot count, the device,
+    and the host ``lens`` array the engine mutates in place.
     """
 
     kind: str = "abstract"
     swap_out_bytes: int = 0            # cumulative offload traffic
     swap_in_bytes: int = 0             # cumulative restore traffic
 
-    def __init__(self, *, max_slots: int, device):
-        self.max_slots = int(max_slots)
+    def __init__(self, *, max_slots: int, device, dist=None,
+                 kv_sharding: str = "replicated", shards: int = 0):
+        if kv_sharding not in KV_SHARDINGS:
+            raise ValueError(f"kv_sharding must be one of {KV_SHARDINGS}")
+        self.dist = dist
+        self.kv_sharding = kv_sharding
+        if shards:
+            n_shards = int(shards)
+        elif kv_sharding == "dp" and dist is not None:
+            n_shards = dist.dp_size
+        else:
+            n_shards = 1
+        self.n_shards = max(1, n_shards)
+        # slots round up to the shard count so the shards split evenly
+        self.max_slots = _round_up(max_slots, self.n_shards)
+        self.slots_per_shard = self.max_slots // self.n_shards
+        # the shard whose pages this rank's pools hold (None: all pages)
+        self.local_shard = (dist.dp_rank if dist is not None
+                            and kv_sharding == "dp" and self.n_shards > 1
+                            else None)
         self.device = torch.device(device)
         self.lens = np.zeros((self.max_slots,), np.int32)
+
+    # -- shard topology ----------------------------------------------------
+    def shard_of_slot(self, slot: int) -> int:
+        """Owning shard of ``slot`` (0 under the replicated layout)."""
+        return slot // self.slots_per_shard
+
+    def slots_of(self, shard: int) -> range:
+        """The contiguous slot-id range owned by ``shard``."""
+        return range(shard * self.slots_per_shard,
+                     (shard + 1) * self.slots_per_shard)
+
+    @property
+    def decode_rows(self) -> range:
+        """The slots this rank's decode step computes: its shard's under
+        ``"dp"`` over ranks, else every slot."""
+        if self.local_shard is None:
+            return range(self.max_slots)
+        return self.slots_of(self.local_shard)
 
     # -- admission budget ------------------------------------------------
     @property
@@ -84,8 +139,17 @@ class StateCache(abc.ABC):
         return 0 < int(total_tokens) <= self.max_slot_tokens
 
     @abc.abstractmethod
-    def can_admit(self, total_tokens: int) -> bool:
-        """Can ``total_tokens`` be reserved now?"""
+    def can_admit(self, total_tokens: int,
+                  shard: Optional[int] = None) -> bool:
+        """Can ``total_tokens`` be reserved now, on ``shard``, or on the
+        shard with the most room when None?"""
+
+    @abc.abstractmethod
+    def best_shard(self, total_tokens: int,
+                   candidates: Optional[Sequence[int]] = None
+                   ) -> Optional[int]:
+        """Least-loaded placement among ``candidates`` (default: every
+        shard); None when no shard fits."""
 
     # -- slot lifecycle ---------------------------------------------------
     @abc.abstractmethod
@@ -94,7 +158,8 @@ class StateCache(abc.ABC):
 
     @abc.abstractmethod
     def grow_slot(self, slot: int) -> bool:
-        """Extend the slot's capacity by one unit; False when dry."""
+        """Extend the slot's capacity by one unit; False when the slot's
+        shard is dry."""
 
     @abc.abstractmethod
     def free_slot(self, slot: int) -> None:
@@ -116,12 +181,13 @@ class StateCache(abc.ABC):
 
     @abc.abstractmethod
     def restore_slot(self, rid: int, slot: int, tokens: int) -> int:
-        """Restore a parked request onto ``slot`` at length ``tokens``.
-        Returns bytes copied."""
+        """Restore a parked request onto ``slot`` of its own shard (the
+        placement is sticky) at length ``tokens``. Returns bytes
+        copied."""
 
     @abc.abstractmethod
     def can_restore(self, rid: int) -> bool:
-        """Is there room to restore the parked request now?"""
+        """Does the parked request's shard have room to restore now?"""
 
     @abc.abstractmethod
     def drop_offload(self, rid: int) -> None:
@@ -154,11 +220,13 @@ class StateCache(abc.ABC):
     prefix_cached_pages: int = 0
     prefix_shared_pages: int = 0
 
-    def match_prefix(self, token_ids, total_tokens: int
+    def match_prefix(self, token_ids, total_tokens: int,
+                     candidates: Optional[Sequence[int]] = None
                      ) -> Tuple[Optional[int], int]:
-        """``(shard, cached_tokens)`` of a usable cached prefix of
-        ``token_ids`` for a request of ``total_tokens``, or ``(None,
-        0)`` on a miss (admission then goes by :meth:`can_admit`)."""
+        """``(shard, cached_tokens)`` of the best usable cached prefix of
+        ``token_ids`` for a request of ``total_tokens`` among
+        ``candidates`` (default: every shard), or ``(None, 0)`` on a miss
+        (placement then goes by :meth:`best_shard`)."""
         return None, 0
 
     def alloc_slot_prefix(self, slot: int, tokens: int, token_ids,
@@ -195,19 +263,22 @@ class StateCache(abc.ABC):
 
     @abc.abstractmethod
     def device_page_table(self, slot: int) -> torch.Tensor:
-        """One slot's ``[1, W]`` int32 page-table row, a fresh tensor."""
+        """One slot's ``[1, W]`` int32 page-table row in this rank's page
+        ids, a fresh tensor."""
 
     @abc.abstractmethod
     def decode_inputs(self, sink_only: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """The decode step's page table ``[max_slots, W]``, lens
-        ``[max_slots]`` (int32) and per-slot sinks ``[max_slots]``: the
-        same device tensors every call, refreshed in place from the host
-        state (``sink_only``: every row mapped to the sink, lens 0)."""
+        """The decode step's page table ``[R, W]``, lens ``[R]`` (int32)
+        and per-slot sinks ``[R]`` of the ``R`` slots of
+        :attr:`decode_rows`, in this rank's page ids: the same device
+        tensors every call, refreshed in place from the host state
+        (``sink_only``: every row mapped to the sink, lens 0)."""
 
     @abc.abstractmethod
     def sink_row(self, slot: int) -> torch.Tensor:
-        """``[1]`` sink id for one slot's prefill chunk."""
+        """``[1]`` sink id, in this rank's page ids, for one slot's
+        prefill chunk."""
 
     # -- accounting --------------------------------------------------------
     @property
@@ -227,8 +298,23 @@ class StateCache(abc.ABC):
 
     @property
     @abc.abstractmethod
+    def per_device_cache_bytes(self) -> int:
+        """State bytes resident on one device."""
+
+    @property
+    @abc.abstractmethod
+    def per_device_peak_used_bytes(self) -> int:
+        """Peak bytes resident on one device (the busiest shard's under
+        ``"dp"``)."""
+
+    @property
+    @abc.abstractmethod
     def free_units(self) -> int:
         """Free allocation units (pages for a paged cache)."""
+
+    @abc.abstractmethod
+    def free_units_of(self, shard: int) -> int:
+        """Free allocation units on one shard."""
 
     def record_metrics(self, registry) -> None:
         """Refresh this cache's point-in-time gauges into a
@@ -253,6 +339,7 @@ class StateCache(abc.ABC):
         g("repro_swap_in_bytes",
           "cumulative host-to-device restore traffic").set(
             self.swap_in_bytes)
-        g("repro_kv_free_units",
-          "free cache units (pages or slots) per shard",
-          ["shard"]).labels(shard=0).set(self.free_units)
+        fam = g("repro_kv_free_units",
+                "free cache units (pages or slots) per shard", ["shard"])
+        for s in range(self.n_shards):
+            fam.labels(shard=s).set(self.free_units_of(s))

@@ -8,7 +8,8 @@ JAX package's trace for the same arguments, so a benchmark run replays
 the same requests on either package.
 
 ``replay`` drives an engine through a trace in wall-clock time, its
-latency clocks starting at each request's *scheduled* arrival;
+latency clocks starting at each request's *scheduled* arrival (over
+ranks, rank 0's clock decides the arrivals);
 ``run_poisson`` builds an engine, warms it up and replays a trace, the
 shared body of the serving launcher's ``--rate`` path and of
 ``chip_smoke.py``'s replay. ``dense_greedy_reference`` decodes one
@@ -110,14 +111,27 @@ def replay(engine, trace: List[TraceEntry], *, eos_id=None,
            time_scale: float = 1.0, sampling=None):
     """Drive ``engine`` through ``trace`` in wall-clock time (arrival
     offsets multiplied by ``time_scale``; 0 submits everything up front).
-    Returns the list of submitted Requests (done when this returns)."""
+    Over ranks (an engine with ``dist``) rank 0's clock decides: each
+    turn it broadcasts how many entries have arrived, and every rank
+    submits those. Returns the list of submitted Requests (done when
+    this returns)."""
     t0 = time.perf_counter()
     pending = list(trace)
     requests = []
     kw = {} if sampling is None else {"sampling": sampling}
+    ranks = getattr(engine, "dist", None) is not None
     while pending or engine.has_work:
         now = time.perf_counter() - t0
-        while pending and pending[0].arrival_s * time_scale <= now:
+        arrived = 0
+        while arrived < len(pending) and \
+                pending[arrived].arrival_s * time_scale <= now:
+            arrived += 1
+        if ranks:
+            import torch.distributed
+            agreed = [arrived]
+            torch.distributed.broadcast_object_list(agreed, src=0)
+            arrived = agreed[0]
+        for _ in range(arrived):
             e = pending.pop(0)
             # latency clocks start at the *scheduled* arrival, so
             # queueing delay accrued while the engine was mid-step is

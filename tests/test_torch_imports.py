@@ -88,5 +88,5 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
         lm.init(cfg, 0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="process group"):
         Engine(cfg, options=EngineOptions(device="cpu", devices=2))

@@ -87,13 +87,11 @@ def _trie(root):
 
 
 def _state(kv):
-    jax_side = hasattr(kv, "_free_by_shard")
     return dict(
         table=kv.page_table.tolist(), lens=kv.lens.tolist(),
-        refs=kv._refs.tolist(),
-        free=list(kv._free_by_shard[0] if jax_side else kv._free),
+        refs=kv._refs.tolist(), free=list(kv._free_by_shard[0]),
         slots=[list(p) for p in kv._slot_pages],
-        trie=_trie(kv._trie_roots[0] if jax_side else kv._root),
+        trie=_trie(kv._trie_roots[0]),
         offloaded=sorted(kv._offloaded),
         **{k: int(getattr(kv, k)) for k in COUNTERS})
 
@@ -307,13 +305,12 @@ def test_copy_pages_in_place_matches_jax():
 # ---------------------------------------------------------------------------
 
 def _free_list(kv):
-    return kv._free_by_shard[0] if hasattr(kv, "_free_by_shard") \
-        else kv._free
+    return kv._free_by_shard[0]
 
 
 def _page(kv, page):
     """One physical page of every pool leaf, as numpy."""
-    if hasattr(kv, "_free_by_shard"):
+    if isinstance(kv, JaxCache):
         return [np.asarray(leaf[:, page]) for layer in kv.pools.values()
                 for leaf in layer.values()]
     return [np.stack([period[lk][name][page].numpy()

@@ -208,7 +208,7 @@ def test_copy_pages_between_replays(arch):
     src, dst = [], []
     for s in sched.decode_slots():
         for i, page in enumerate(kv._slot_pages[s]):
-            fresh = kv._take_page()
+            fresh = kv._take_page(kv.shard_of_slot(s))
             assert fresh is not None
             src.append(page)
             dst.append(fresh)

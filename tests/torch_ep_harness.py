@@ -291,3 +291,71 @@ def _unported(ctx, cfg) -> dict:
         except NotImplementedError:
             out[name] = True
     return out
+
+
+def serve_engine(cfg, params, prompts, max_new, *, cancel_at=None,
+                 repeat=0, rank_measure=False, **over):
+    """The port's ``Engine`` over ``prompts`` (then the first ``repeat``
+    again, for prefix hits) on the CPU, run to idle. ``cancel_at``:
+    ``(rid, tokens)`` cancels request ``rid`` once it holds ``tokens``
+    tokens, and ``(rid, tokens, rank)`` asks for it on that rank alone.
+    ``rank_measure``: the adaptive prefill's candidate times differ by
+    rank (rank 0 favours few chunks, the others many; the world's
+    maximum favours 4). Returns each finished request's tokens by rid,
+    the cancelled rids, whether every shard drained, and ``stats()``."""
+    from repro_torch.serve import Engine, EngineOptions
+    kw = dict(page_size=4, max_slots=3, max_seq_len=64, chunk=16,
+              min_bucket=8, device="cpu", decode_graph=False,
+              adaptive=False)
+    if rank_measure:
+        first = not dist.is_initialized() or dist.get_rank() == 0
+        kw.update(adaptive=True, measure_fn=lambda b, n, strategy: (
+            1.0 + n if first else 12.0 / n))
+    kw.update(over)
+    eng = Engine(cfg, params, options=EngineOptions(**kw))
+    reqs = [eng.submit(p, max_new_tokens=m)
+            for p, m in list(zip(prompts, max_new))
+            + list(zip(prompts, max_new))[:repeat]]
+    while eng.has_work:
+        eng.step()
+        if cancel_at is not None:
+            rid, tokens, *rank = cancel_at
+            if len(reqs[rid].output) >= tokens and (
+                    not rank or dist.get_rank() == rank[0]):
+                eng.cancel(reqs[rid])
+                cancel_at = None
+    kv = eng.kv
+    return {"outs": {r.rid: list(r.output) for r in eng.done},
+            "cancelled": sorted(r.rid for r in eng.cancelled),
+            "drained": all(kv.free_pages_of(s) == kv.shard_capacity_pages
+                           for s in range(kv.n_shards))
+            and not kv.offloaded_count,
+            "stats": eng.stats()}
+
+
+def engine_rank(ctx, params_np, cfgs, prompts, max_new, cases):
+    """``serve_engine`` over this rank's ``Engine`` of ``devices`` = the
+    world for each ``(name, cfg key, options)`` of ``cases``, and which
+    misuses raise: ``devices`` other than the world, and a captured
+    decode step under the group."""
+    from repro_torch.convert import from_jax
+    from repro_torch.serve import Engine, EngineOptions
+    params = {k: from_jax(v, device="cpu") for k, v in params_np.items()}
+    world = ctx.world_size
+    out = {}
+    for name, key, over in cases:
+        out[name] = serve_engine(cfgs[key], params[key], prompts, max_new,
+                                 devices=world, **over)
+    key = next(iter(cfgs))
+    for name, over, err in (
+            ("devices_not_world", dict(devices=world + 1, decode_graph=False),
+             ValueError),
+            ("decode_graph", dict(devices=world), NotImplementedError)):
+        try:
+            Engine(cfgs[key], params[key], options=EngineOptions(
+                device="cpu", adaptive=False, max_slots=2, max_seq_len=32,
+                **over))
+            out[name] = "no error"
+        except err as e:
+            out[name] = str(e)
+    return out
