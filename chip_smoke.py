@@ -188,7 +188,8 @@ order; any failure ends the run with a non-zero exit and no result line:
    through ``lm.prefill`` and 4 ``lm.decode_step``s with ``dist``
    against the one-rank run (``ep-decode``: greedy tokens equal, logits,
    the expert FFN's launches at the EP shapes); the train launcher
-   under ``torch.distributed.run`` on NCCL (``ep-launcher``); a profile
+   under ``torch.distributed.run`` on NCCL, saving a checkpoint each
+   step (``ep-launcher``); a profile
    of the overlapped schedule (``ep-trace``: whether chunk i+1's
    dispatch All-to-All overlaps chunk i's expert FFN). Each rank's
    train and decode paths must give the expert FFN exactly the inputs
@@ -211,8 +212,25 @@ order; any failure ends the run with a non-zero exit and no result line:
    (``serve-ranks-exact``); each rank's KV pool bytes under "dp"
    against "replicated" (``serve-ranks-bytes``: a third plus one sink
    page). Its launches join the main paths' counts;
-20. the ``kernels`` JSON line (the expert FFN's row carrying its EP
-   shapes, ``ep``); 21. the ``ok`` JSON line, last.
+20. training over ranks, finished (``tools/ep_state_phase.py``, which
+   runs it alone): gloo processes sharing the card, full-width
+   moe-gpt3-s at 4 layers, fp32. Four ranks (mesh (2, 2), ZeRO-3 expert
+   shards): 2 steps of ``adamw8bit`` and ``adafactor`` against the
+   one-device optimizer fed the ranks' gathered gradients (bit-equal,
+   and rtol 1e-6 for Adafactor), each rank's optimizer state bytes equal
+   to their reckoning (``ep-optim``); in the ``adafactor`` run a
+   checkpoint saved after step 1, the state restored from it into a
+   fresh (2, 2) state and stepped again bit-equal to the run's step 2,
+   each rank's blocking save and file bytes, and the checkpoint restored
+   onto one device bit-equal (``ep-ckpt``). Two more ranks (mesh (1, 2),
+   beside the four): a profile of
+   one bf16 MoE layer's backward pass under NONE and S4, overlapped and
+   serial: which All-to-Alls span another chunk's expert FFN, the
+   backward's ms and peak memory (``ep-trace-bwd``). The expert FFN's
+   inputs are ``ep_state_phase.ffn_cases``' (phase 3 holds the kernel at
+   them); its launches join the main paths' counts;
+21. the ``kernels`` JSON line (the expert FFN's row carrying its EP
+   shapes, ``ep``); 22. the ``ok`` JSON line, last.
 
 The serving phases 4-10 and 12-13 fix n = 4 (``adaptive=False``, the
 launcher's ``--num-partitions 4``), so their numbers compare with earlier
@@ -915,6 +933,14 @@ def train_kernel_cases(torch) -> list:
     for dtype in ("bfloat16", "float32"):
         for case, ((e, c, m), h, gated, act) in \
                 serve_ranks_phase.ffn_cases().items():
+            rows.append(check_grouped(torch, case, e, c, m, h, gated, act,
+                                      dtype, seed=10 * len(rows)))
+    # training over ranks, finished (phase 20): the (2, 2) training chunk
+    # and the (1, 2) traced layer's chunk
+    import ep_state_phase
+    for dtype in ("bfloat16", "float32"):
+        for case, ((e, c, m), h, gated, act, _) in \
+                ep_state_phase.ffn_cases().items():
             rows.append(check_grouped(torch, case, e, c, m, h, gated, act,
                                       dtype, seed=10 * len(rows)))
     return rows
@@ -2984,8 +3010,9 @@ def memory_remat(torch, build) -> collections.Counter:
 
 
 # the checkpoint part's depth: at 12 layers its ~12 GB written, moved
-# and read back took ~75-86 s of the script's 1,200 s
-CKPT_LAYERS = 4
+# and read back took ~75-86 s of the script's 1,200 s, at 4 layers
+# 45-53 s; the script's phase 20 took that time back
+CKPT_LAYERS = 2
 
 
 def memory_ckpt(torch, build) -> collections.Counter:
@@ -3717,8 +3744,15 @@ def main() -> int:
     with torch.no_grad():
         ep_launches += serve_ranks_phase.serve_ranks()
 
-    # -- 20. kernels line ---------------------------------------------------
+    # -- 20. training over ranks, finished ----------------------------------
     log(f"phase 20 at {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    import ep_state_phase
+    ep_launches += ep_state_phase.ep_state_phase()
+
+    # -- 21. kernels line ---------------------------------------------------
+    log(f"phase 21 at {time.perf_counter() - t_start:.1f} s")
     main_launches = (serve_launches + offload_launches + prefix_launches
                      + cancel_launches + obs_launches + deepseek_launches
                      + dense_launches + train_launches + memory_launches
@@ -3775,7 +3809,7 @@ def main() -> int:
                     and r["case"].startswith("d192")]),
     ]}), flush=True)
 
-    # -- 21. result ---------------------------------------------------------
+    # -- 22. result ---------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

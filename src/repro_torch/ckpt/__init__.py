@@ -1,3 +1,3 @@
-from repro_torch.ckpt.checkpoint import Checkpointer
+from repro_torch.ckpt.checkpoint import Checkpointer, Layout
 
-__all__ = ["Checkpointer"]
+__all__ = ["Checkpointer", "Layout"]

@@ -1,7 +1,7 @@
-"""Checkpoints of a train state: per-host npz shards and a JSON
-manifest, as ``repro.ckpt.checkpoint``, with the same file layout
-(``step_%010d/shard_<h>.npz`` and ``manifest.json``, each leaf's shape
-and dtype).
+"""Checkpoints of a train state: npz shards and a JSON manifest, as
+``repro.ckpt.checkpoint`` (``step_%010d/shard_<r>.npz`` and
+``manifest.json``, each leaf's global shape and dtype), in the
+multi-host form its docstring sketches: slices keyed by global offset.
 
 * atomic: a checkpoint is written to ``<dir>.tmp`` and then renamed, so
   a crash never leaves a half-written checkpoint as the latest;
@@ -20,18 +20,50 @@ a train state) and Python ints (``step``, ``count``), which are saved as
 on their devices, and returns the state; without ``like`` it returns
 the flat ``{"key/path": array}`` dict, as the JAX package does. A
 writer thread's error is raised by the next ``wait`` (or ``save``).
+
+One device is one rank that holds every leaf whole (``WHOLE``, the
+default of ``save`` and ``restore``); over ranks ``shardings`` is this
+rank's ``Layout`` (``runtime.train_loop.state_layout``):
+
+* ``save``: each rank copies to the host only the leaves it alone
+  writes (``Layout.owns``: its expert and ZeRO-3 slices and their
+  optimizer state; a leaf that several ranks hold by its lowest rank,
+  the replicated ones by rank 0) and writes them to
+  ``step_N.tmp/shard_<rank>.npz`` with ``part_<rank>.json``, each leaf's
+  global shape and its slice's offset. Rank 0's writer waits for every
+  rank's part (the file system is the rendezvous: a writer thread never
+  calls a collective, which would interleave with the step's), merges
+  them into ``manifest.json`` (``leaves``: global shapes; ``slices``:
+  each leaf's files and offsets), publishes with one rename and keeps
+  ``keep`` checkpoints; every other rank's writer waits for that
+  manifest, so that ``wait`` on any rank means published. ``save``
+  itself makes one collective over ranks, in the calling thread: rank 0
+  clears the step's ``.tmp`` and broadcasts a fresh id that marks this
+  save's parts and manifest. Every wait is bounded (``RANKS_TIMEOUT_S``).
+* ``restore``: each rank reads only the slices that overlap its part of
+  each leaf (``Layout.cut``), from any checkpoint of the same model,
+  saved on the same mesh, on another one or on one device; without
+  ``like``, into the flat dict of whole leaves.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
+import random
 import shutil
 import threading
 import time
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+# the longest a writer waits for the other ranks' files (a rank that
+# died before writing its part must not hang the others for ever)
+RANKS_TIMEOUT_S = 600.0
 
 # torch dtypes whose tensors numpy holds as they are
 _NUMPY = {torch.float64, torch.float32, torch.float16, torch.int64,
@@ -55,13 +87,55 @@ def _items(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
         yield prefix, tree
 
 
-def _to_host(state) -> Tuple[Dict[str, np.ndarray], int]:
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """Where one rank's train state lies in the whole one, for ``save``
+    and ``restore`` over ranks. ``cut(key, ndim)``: the leaf's cuts,
+    ``(axis, index, parts)`` each (this rank holds part ``index`` of
+    ``parts`` equal parts along ``axis``), ``()`` for a whole leaf.
+    ``owns(key, ndim)``: whether this rank writes the leaf. ``rank`` and
+    ``world`` are the default group's; ``device`` holds the tensor of
+    ``agree``'s broadcast."""
+    rank: int
+    world: int
+    cut: Callable[[str, int], tuple]
+    owns: Callable[[str, int], bool]
+    device: Any = "cpu"
+
+    def region(self, key: str, shape) -> Tuple[list, list]:
+        """(global shape, this rank's offset) of a leaf shaped ``shape``
+        here."""
+        whole, start = list(shape), [0] * len(shape)
+        for axis, i, n in self.cut(key, len(shape)):
+            whole[axis], start[axis] = shape[axis] * n, shape[axis] * i
+        return whole, start
+
+    def agree(self, value: int) -> int:
+        """Rank 0's ``value`` on every rank (collective over ranks)."""
+        if self.world == 1:
+            return value
+        t = torch.tensor([value], dtype=torch.int64, device=self.device)
+        dist.broadcast(t, src=0)
+        return int(t.item())
+
+
+# one device: one rank that holds and writes every leaf whole
+WHOLE = Layout(rank=0, world=1, cut=lambda key, ndim: (),
+               owns=lambda key, ndim: True)
+
+
+def _ndim(leaf) -> int:
+    return leaf.dim() if isinstance(leaf, torch.Tensor) else np.ndim(leaf)
+
+
+def _to_host(items: Iterable[Tuple[str, Any]]
+             ) -> Tuple[Dict[str, np.ndarray], int]:
     """Every leaf as a numpy array that nothing else writes (a copy), and
     their bytes. CUDA tensors are copied into pinned buffers with one
     synchronise at the end."""
     out: Dict[str, np.ndarray] = {}
     on_card = False
-    for key, leaf in _items(state):
+    for key, leaf in items:
         if isinstance(leaf, torch.Tensor):
             if leaf.dtype not in _NUMPY:
                 raise TypeError(f"checkpoint leaf {key}: numpy cannot hold "
@@ -89,27 +163,25 @@ def _to_host(state) -> Tuple[Dict[str, np.ndarray], int]:
     return out, sum(a.nbytes for a in out.values())
 
 
-def _fill(like, arrays: Dict[str, np.ndarray], prefix: str = ""):
-    """``like`` with its tensors overwritten in place from ``arrays`` and
-    its ints replaced; the containers are rebuilt, the tensors kept."""
+def _fill(like, read: Callable, prefix: str = ""):
+    """``like`` with its tensors overwritten in place from ``read(key,
+    leaf)`` (this rank's part of the leaf, as numpy) and its ints
+    replaced; the containers are rebuilt, the tensors kept."""
     join = (lambda k: f"{prefix}/{k}") if prefix else str
     if isinstance(like, dict):
-        return {k: _fill(like[k], arrays, join(k)) for k in like}
+        return {k: _fill(like[k], read, join(k)) for k in like}
     if isinstance(like, tuple) and hasattr(like, "_fields"):
-        return type(like)(*(_fill(v, arrays, join(k))
+        return type(like)(*(_fill(v, read, join(k))
                             for k, v in zip(like._fields, like)))
     if isinstance(like, (list, tuple)):
-        return type(like)(_fill(v, arrays, join(i))
+        return type(like)(_fill(v, read, join(i))
                           for i, v in enumerate(like))
-    if prefix not in arrays:
-        raise KeyError(f"checkpoint has no leaf {prefix!r}")
-    arr = arrays[prefix]
+    arr = read(prefix, like)
     if isinstance(like, torch.Tensor):
         src = torch.from_numpy(np.ascontiguousarray(arr))
-        if src.shape != like.shape or src.dtype != like.dtype:
-            raise ValueError(f"checkpoint leaf {prefix}: {src.dtype} "
-                             f"{tuple(src.shape)}, the state holds "
-                             f"{like.dtype} {tuple(like.shape)}")
+        if src.dtype != like.dtype:
+            raise ValueError(f"checkpoint leaf {prefix}: {src.dtype}, the "
+                             f"state holds {like.dtype}")
         with torch.no_grad():
             like.copy_(src)
         return like
@@ -119,19 +191,81 @@ def _fill(like, arrays: Dict[str, np.ndarray], prefix: str = ""):
                     f"{type(like).__name__}")
 
 
+class _Reader:
+    """A checkpoint's leaves by part: ``read(key, start, shape)`` is the
+    region of the whole leaf at ``start``, assembled from the slices
+    that overlap it (each file opened once, each slice loaded only
+    where it overlaps a region asked for)."""
+
+    def __init__(self, path: str, manifest: dict):
+        self.path = path
+        self.leaves = manifest["leaves"]
+        self.slices = manifest["slices"]
+        self.files: Dict[str, Any] = {}
+
+    def _file(self, name: str):
+        if name not in self.files:
+            self.files[name] = np.load(os.path.join(self.path, name))
+        return self.files[name]
+
+    def read(self, key: str, start, shape) -> np.ndarray:
+        if key not in self.leaves:
+            raise KeyError(f"checkpoint has no leaf {key!r}")
+        for sl in self.slices.get(key, ()):      # one slice, the region
+            if list(sl["start"]) == list(start) and \
+                    list(sl["shape"]) == list(shape):
+                return self._file(sl["file"])[key]
+        out = np.empty(shape, dtype=np.dtype(self.leaves[key]["dtype"]))
+        covered = 0
+        for sl in self.slices.get(key, ()):
+            lo = [max(a, b) for a, b in zip(sl["start"], start)]
+            hi = [min(a + n, b + m) for a, n, b, m in
+                  zip(sl["start"], sl["shape"], start, shape)]
+            if any(x >= y for x, y in zip(lo, hi)):
+                continue
+            src = self._file(sl["file"])[key]
+            out[tuple(slice(x - b, y - b) for x, y, b in
+                      zip(lo, hi, start))] = src[tuple(
+                          slice(x - a, y - a) for x, y, a in
+                          zip(lo, hi, sl["start"]))]
+            covered += math.prod(y - x for x, y in zip(lo, hi))
+        if covered != math.prod(shape):
+            raise ValueError(f"checkpoint leaf {key}: its slices cover "
+                             f"{covered} of the {math.prod(shape)} "
+                             f"elements asked for")
+        return out
+
+    def close(self) -> None:
+        for f in self.files.values():
+            f.close()
+
+
+def _write_json(path: str, obj) -> None:
+    """Written whole or not at all (a reader polls for it)."""
+    with open(path + ".part", "w") as f:
+        json.dump(obj, f)
+    os.replace(path + ".part", path)
+
+
+def _load_json(path: str) -> Optional[dict]:
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except FileNotFoundError:
+        return None
+
+
 class Checkpointer:
     """Saves and restores train states under ``directory``; see the
     module docstring. ``last_copy_s`` / ``last_bytes`` hold the blocking
-    part of the latest ``save`` (the copy to the host) and
-    ``last_write_s`` the writer thread's seconds of the latest finished
-    write."""
+    part of the latest ``save`` (over ranks: the broadcast and this
+    rank's copy to the host) and its bytes, ``last_write_s`` the writer
+    thread's seconds of the latest finished write (over ranks, on rank 0
+    the wait for every rank's part included)."""
 
-    def __init__(self, directory: str, keep: int = 3,
-                 host_index: int = 0, num_hosts: int = 1):
+    def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
         self.keep = keep
-        self.host_index = host_index
-        self.num_hosts = num_hosts
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
@@ -139,43 +273,94 @@ class Checkpointer:
         self.last_bytes = 0
         self.last_write_s = 0.0
 
+    def _path(self, step: int) -> str:
+        return os.path.join(self.dir, f"step_{step:010d}")
+
     # ---------------- save ----------------
-    def save(self, step: int, state, block: bool = False) -> None:
+    def save(self, step: int, state, block: bool = False,
+             shardings: Layout = WHOLE) -> None:
+        """Copies this rank's part of ``state`` (as ``shardings`` says)
+        to the host and writes it in a thread; ``block`` waits for the
+        write."""
         self.wait()
         t0 = time.perf_counter()
-        arrays, nbytes = _to_host(state)
+        path = self._path(step)
+        lay = shardings
+        if lay.rank == 0:
+            shutil.rmtree(path + ".tmp", ignore_errors=True)
+            os.makedirs(path + ".tmp")
+        nonce = lay.agree(random.getrandbits(62) if lay.rank == 0 else 0)
+        arrays, nbytes = _to_host((k, v) for k, v in _items(state)
+                                  if lay.owns(k, _ndim(v)))
+        part = {}
+        for k, a in arrays.items():
+            whole, start = lay.region(k, a.shape)
+            part[k] = {"shape": whole, "dtype": str(a.dtype),
+                       "start": start, "size": list(a.shape)}
         self.last_copy_s = time.perf_counter() - t0
         self.last_bytes = nbytes
 
-        def _write():
+        def run():
             t1 = time.perf_counter()
             try:
-                path = os.path.join(self.dir, f"step_{step:010d}")
-                tmp = path + ".tmp"
-                os.makedirs(tmp, exist_ok=True)
-                np.savez(os.path.join(tmp, f"shard_{self.host_index}.npz"),
-                         **arrays)
-                manifest = {
-                    "step": step,
-                    "num_hosts": self.num_hosts,
-                    "leaves": {k: {"shape": list(v.shape),
-                                   "dtype": str(v.dtype)}
-                               for k, v in arrays.items()},
-                }
-                with open(os.path.join(tmp, "manifest.json"), "w") as f:
-                    json.dump(manifest, f)
-                if os.path.exists(path):
-                    shutil.rmtree(path)
-                os.rename(tmp, path)                 # atomic publish
-                self._gc()
+                self._write(step, path, arrays, part, nonce, lay)
             except Exception as e:                   # raised by wait()
                 self._error = e
             self.last_write_s = time.perf_counter() - t1
 
-        self._thread = threading.Thread(target=_write, daemon=True)
+        self._thread = threading.Thread(target=run, daemon=True)
         self._thread.start()
         if block:
             self.wait()
+
+    def _write(self, step: int, path: str, arrays, part, nonce: int,
+               lay: Layout) -> None:
+        tmp = path + ".tmp"
+        np.savez(os.path.join(tmp, f"shard_{lay.rank}.npz"), **arrays)
+        _write_json(os.path.join(tmp, f"part_{lay.rank}.json"),
+                    {"nonce": nonce, "leaves": part})
+        if lay.rank != 0:                  # published when rank 0 has
+            self._await(lambda: (_load_json(os.path.join(
+                path, "manifest.json")) or {}).get("nonce") == nonce,
+                f"step {step}'s manifest")
+            return
+        parts: Dict[int, dict] = {}
+
+        def arrived() -> bool:
+            for r in range(lay.world):
+                if r not in parts:
+                    got = _load_json(os.path.join(tmp, f"part_{r}.json"))
+                    if got is not None and got["nonce"] == nonce:
+                        parts[r] = got
+            return len(parts) == lay.world
+
+        self._await(arrived, f"step {step}'s parts from {lay.world} ranks")
+        manifest = {"step": step, "num_hosts": lay.world, "nonce": nonce,
+                    "leaves": {}, "slices": {}}
+        for r in sorted(parts):
+            for k, v in parts[r]["leaves"].items():
+                manifest["leaves"][k] = {"shape": v["shape"],
+                                         "dtype": v["dtype"]}
+                manifest["slices"].setdefault(k, []).append(
+                    {"file": f"shard_{r}.npz", "start": v["start"],
+                     "shape": v["size"]})
+            os.remove(os.path.join(tmp, f"part_{r}.json"))
+        _write_json(os.path.join(tmp, "manifest.json"), manifest)
+        self._publish(tmp, path)
+
+    def _publish(self, tmp: str, path: str) -> None:
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.rename(tmp, path)                         # atomic publish
+        self._gc()
+
+    def _await(self, done: Callable[[], bool], what: str) -> None:
+        deadline = time.monotonic() + RANKS_TIMEOUT_S
+        while not done():
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"checkpoint: waited {RANKS_TIMEOUT_S} "
+                                   f"s for {what}")
+            time.sleep(0.005)
 
     def wait(self) -> None:
         """Waits for the writer thread; raises the error it met, if any."""
@@ -189,8 +374,7 @@ class Checkpointer:
     def _gc(self) -> None:
         steps = sorted(self.list_steps())
         for s in steps[:-self.keep]:
-            shutil.rmtree(os.path.join(self.dir, f"step_{s:010d}"),
-                          ignore_errors=True)
+            shutil.rmtree(self._path(s), ignore_errors=True)
 
     # ---------------- restore ----------------
     def list_steps(self):
@@ -200,25 +384,41 @@ class Checkpointer:
                 out.append(int(name.split("_")[1]))
         return sorted(out)
 
-    def restore(self, step: int, like=None, shardings=None):
-        if shardings is not None:
-            raise NotImplementedError(
-                "restoring onto target shardings comes with ROADMAP.md's "
-                "'Expert parallelism' slice")
-        path = os.path.join(self.dir, f"step_{step:010d}")
+    def restore(self, step: int, like=None, shardings: Layout = WHOLE):
+        """Step ``step``'s state: this rank's part (as ``shardings``
+        says) copied into ``like`` in place, or without ``like`` the flat
+        dict of whole leaves."""
+        path = self._path(step)
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
-        arrays: Dict[str, np.ndarray] = {}
-        for h in range(manifest["num_hosts"]):
-            fn = os.path.join(path, f"shard_{h}.npz")
-            if os.path.exists(fn):
-                with np.load(fn) as z:
-                    arrays.update({k: z[k] for k in z.files})
-        return _fill(like, arrays) if like is not None else arrays
+        reader = _Reader(path, manifest)
+        try:
+            if like is None:
+                return {k: reader.read(k, [0] * len(v["shape"]),
+                                       v["shape"])
+                        for k, v in manifest["leaves"].items()}
 
-    def restore_latest(self, abstract=None, like=None, shardings=None):
-        """The newest checkpoint as ``{"step", "state"}``, or None.
-        ``abstract`` is accepted and ignored, as in the JAX package."""
+            def read(key, leaf):
+                shape = list(np.shape(leaf))
+                whole, start = shardings.region(key, shape)
+                if key in reader.leaves and \
+                        reader.leaves[key]["shape"] != whole:
+                    raise ValueError(
+                        f"checkpoint leaf {key}: shape "
+                        f"{tuple(reader.leaves[key]['shape'])}, the state "
+                        f"holds {tuple(whole)}")
+                return reader.read(key, start, shape)
+            return _fill(like, read)
+        finally:
+            reader.close()
+
+    def restore_latest(self, abstract=None, like=None,
+                       shardings: Layout = WHOLE):
+        """The newest checkpoint as ``{"step", "state"}``, or None, after
+        this checkpointer's own write has finished (over ranks: been
+        published, so every rank sees the same steps). ``abstract`` is
+        accepted and ignored, as in the JAX package."""
+        self.wait()
         steps = self.list_steps()
         if not steps:
             return None

@@ -21,10 +21,22 @@ parameters and are unstacked with them (an 8-bit moment, a ``q`` /
 ``scale`` pair, per period); Adafactor's ``factored`` state keeps the
 JAX tree's stacked shape in the port too (``optim.adafactor``), so it is
 copied as it is.
+
+``shard_state`` turns a whole train state (the port's, or a JAX one
+through ``from_jax_state``) into this rank's, and ``gather_state`` turns
+a rank's back into the whole state on every rank: the parameters, the
+compression error, the AdamW moments (an 8-bit moment's ``q`` is cut as
+its parameter; its row ``scale`` is whole along a ZeRO-3 shard's
+columns, so it is cut only over the experts) and Adafactor's ``vr`` /
+``vc`` / ``v`` in their stacked JAX shapes (the experts on axis 1 there;
+``vr`` spans the split columns and is cut only over the experts).
+``leaf_cut`` is the one rule of which leaves are cut and how: the train
+loop's gradient reductions, its optimizers' splits and its checkpoint
+layout (``runtime.train_loop.state_layout``) read it too.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -145,3 +157,75 @@ def gather_params(params: dict, cfg, dist, mode: str = "train") -> dict:
     zero3 = moe_layer.zero3_ok(cfg, dist, mode)
     return _map_moe(params, lambda p: dict(
         p, experts=_gather_experts(p["experts"], dist, zero3)))
+
+
+# ---------------------------------------------------------------------------
+# Train states over ranks
+# ---------------------------------------------------------------------------
+
+def leaf_cut(path, zero3: bool) -> Optional[Tuple[int, bool]]:
+    """How a train state's leaf at ``path`` (its keys, as ``str`` or
+    ``int``) is cut over ranks: None where every rank holds it whole,
+    else (the axis of its experts, whether its last axis is a ZeRO-3
+    shard's split columns). Expert leaves lie under ``moe/experts``;
+    Adafactor's stacked period statistics hold the periods on axis 0."""
+    keys = [str(k) for k in path]
+    if not any(a == "moe" and b == "experts"
+               for a, b in zip(keys, keys[1:])):
+        return None
+    stacked = "factored" in keys and keys[keys.index("factored") + 1:
+                                          ][:1] == ["periods"]
+    return int(stacked), zero3 and keys[-1] not in ("vr", "scale")
+
+
+def _map_path(tree, fn, path=()) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map_path(v, fn, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_path(v, fn, path + (k,))
+                            for k, v in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_path(v, fn, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def _parts(path, x, cfg, dist) -> list:
+    """The cuts of a leaf on this rank: (axis, index, parts, group)."""
+    cut = leaf_cut(path, moe_layer.zero3_ok(cfg, dist))
+    if cut is None or not isinstance(x, torch.Tensor):
+        return []
+    axis, cols = cut
+    out = [(axis, dist.ep_rank, dist.ep_size, dist.ep_group)]
+    if cols:
+        out.append((x.dim() - 1, dist.dp_rank, dist.dp_size, dist.dp_group))
+    return [c for c in out if c[2] > 1]
+
+
+def shard_state(state: dict, cfg, dist) -> dict:
+    """A whole train state -> this rank's (copies; the parameters leaves
+    that require grad, as ``runtime.init_state`` makes them)."""
+    def cut(path, x):
+        parts = _parts(path, x, cfg, dist)
+        if parts:
+            sl = [slice(None)] * x.dim()
+            for axis, i, n, _ in parts:
+                size = x.shape[axis] // n
+                sl[axis] = slice(i * size, (i + 1) * size)
+            x = x[tuple(sl)].clone()
+        if path and path[0] == "params":
+            x = x.detach().requires_grad_(True)
+        return x
+    return _map_path(state, cut)
+
+
+@torch.no_grad()
+def gather_state(state: dict, cfg, dist) -> dict:
+    """A rank's train state -> the whole state, on every rank (collective
+    over the mesh, leaf by leaf in the same order on every rank); the
+    leaves every rank holds whole come back as they are, not copied."""
+    def whole(path, x):
+        for axis, _, _, group in _parts(path, x, cfg, dist):
+            x = gather_dim(x.detach(), group, axis)
+        return x
+    return _map_path(state, whole)

@@ -19,14 +19,18 @@ offloaded names go to pinned host memory. Here:
   the recompute instead of being re-dispatched (``_restore_t_di``).
 
 Under expert parallelism ``T_DI`` is the buffer after the dispatch
-All-to-All (the JAX package tags it there). The overlapped schedule
-interleaves the chunks' forward passes around their collectives so that
-chunk i+1's dispatch can overlap chunk i's expert FFN, and no checkpoint
-can hold one chunk: ``recompute`` wraps such a chunk, whose forward ran
-without a graph, and re-runs it in the backward pass. The serial
-schedule (one device too) keeps the checkpoint: run through
-``recompute`` instead, full-width moe-gpt3-s's S4 training peak on an
-H100 rose from 37.3 to 38.2 GB, and the ``dots`` and ``full`` remat
+All-to-All (the JAX package tags it there). The serial schedule (one
+device too) runs each chunk under the checkpoint. The overlapped
+schedule interleaves the chunks around their collectives, so no
+checkpoint can hold one chunk: ``core.pipeline_moe`` runs the layer's
+chunks in one autograd function, whose backward pass recomputes and
+differentiates them stage by stage between the collectives and issues
+those asynchronously, so that one chunk's All-to-Alls run under another
+chunk's expert FFN (``pipeline_moe.backward_order``); a stash (S1/S3)
+and ``undispatch`` serve it as they serve the checkpoint. The serial
+schedule keeps the checkpoint on one device because it holds less:
+through a split recompute, full-width moe-gpt3-s's S4 training peak on
+an H100 rose from 37.3 to 38.2 GB, and the ``dots`` and ``full`` remat
 policies no longer lowered it (``chip_smoke.py`` phase 15).
 
 ``T_M`` is restored by recompute under every strategy: the fused
@@ -50,7 +54,6 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.types import Strategy
 from repro_torch.distributed import collectives as C
-from repro_torch.models.module import leaves, unflatten
 
 
 def host_offload_supported() -> bool:
@@ -80,6 +83,16 @@ class TdiStash:
         return self.saved.to(device, non_blocking=True)
 
 
+def undispatch(g: torch.Tensor, dest: torch.Tensor, t: int) -> torch.Tensor:
+    """The dispatch's transpose: ``g`` ``[E, C, M]`` (a cotangent of the
+    dispatched buffer) -> ``[t, M]``, ``d tokens[t] = sum_j g[dest[t*k +
+    j]]`` (a route past capacity, ``dest = E*C``, reads zeros)."""
+    e, c, m = g.shape
+    flat = torch.cat([g.reshape(e * c, m), g.new_zeros((1, m))], dim=0)
+    k = dest.shape[0] // t
+    return flat[dest.long()].reshape(t, k, m).sum(1)
+
+
 class _RestoreTdi(torch.autograd.Function):
     """Identity on ``buf`` (the dispatched ``T_DI``) whose backward is the
     dispatch's own: ``d tokens[t] = sum_j d buf[dest[t*k + j]]``, after
@@ -99,12 +112,8 @@ class _RestoreTdi(torch.autograd.Function):
     def backward(ctx, g):
         (dest,) = ctx.saved_tensors
         if ctx.group is not None:
-            g = C.all_to_all(g, ctx.group)[0]
-        e, c, m = g.shape
-        flat = torch.cat([g.reshape(e * c, m), g.new_zeros((1, m))], dim=0)
-        k = dest.shape[0] // ctx.t
-        return (flat[dest.long()].reshape(ctx.t, k, m).sum(1), None, None,
-                None)
+            g = C.all_to_all(g, ctx.group)
+        return undispatch(g, dest, ctx.t), None, None, None
 
 
 def restore_t_di(tokens, dest, dispatch_fn: Callable[[], torch.Tensor],
@@ -125,44 +134,6 @@ def restore_t_di(tokens, dest, dispatch_fn: Callable[[], torch.Tensor],
     else:
         buf = stash.fetch(tokens.device)
     return _RestoreTdi.apply(tokens, dest, buf, group)
-
-
-class _Recompute(torch.autograd.Function):
-    """A chunk whose forward pass ran without a graph (``results``) and
-    whose backward pass re-runs ``fn(params, chunk)`` under autograd and
-    differentiates it: the split-forward counterpart of the checkpoint
-    of ``wrap_chunk``."""
-
-    @staticmethod
-    def forward(ctx, fn, template, results, chunk, *flat):
-        ctx.fn, ctx.template = fn, template
-        ctx.save_for_backward(chunk, *flat)
-        return results
-
-    @staticmethod
-    def backward(ctx, *gs):
-        saved = ctx.saved_tensors
-        ins = [t.detach().requires_grad_(ctx.needs_input_grad[3 + i])
-               for i, t in enumerate(saved)]
-        with torch.enable_grad():
-            out, aux = ctx.fn(unflatten(ctx.template, ins[1:]), ins[0])
-            outs = [out, aux["aux_loss"], aux["z_loss"]]
-            want = [t for t in ins if t.requires_grad]
-            got = iter(torch.autograd.grad(outs, want, gs,
-                                           allow_unused=True))
-        return (None, None, None,
-                *[next(got) if t.requires_grad else None for t in ins])
-
-
-def recompute(fn: Callable, params, chunk: torch.Tensor, results):
-    """Attach the chunk's graph-free ``results`` (``out``, ``aux``) to
-    ``params`` and ``chunk``: the backward pass recomputes ``fn(params,
-    chunk)`` (which runs its collectives again) and differentiates it."""
-    out, aux = results
-    out, aux_loss, z_loss = _Recompute.apply(
-        fn, params, (out, aux["aux_loss"], aux["z_loss"]), chunk,
-        *leaves(params))
-    return out, {"aux_loss": aux_loss, "z_loss": z_loss}
 
 
 def wrap_chunk(fn: Callable, strategy: Strategy) -> Callable:

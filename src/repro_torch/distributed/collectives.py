@@ -6,10 +6,13 @@ here is one such collective with its transpose as the backward pass:
 
 * ``all_to_all``: an All-to-All with equal splits along dim 0 (chunk
   ``j`` goes to rank ``j``); its transpose is the same All-to-All of the
-  cotangent. With ``async_op=True`` it returns at once with a
-  :class:`Pending` whose ``wait`` must be called before the output is
-  read (the overlap of ``core.pipeline_moe``); the backward pass runs
-  synchronously.
+  cotangent. Both run synchronously (the serial schedule of
+  ``core.pipeline_moe``).
+* ``start_all_to_all``: the same All-to-All outside autograd, issued
+  asynchronously with a :class:`Pending` whose ``wait`` must be called
+  before the output is read: the overlapped schedule of
+  ``core.pipeline_moe`` cuts its chunks at their collectives and issues
+  each one itself, the gradients' in its backward pass too.
 * ``scatter_seq``: this rank's slice of the sequence (dim 1); backward
   all-gathers the slices' cotangents over the group, because each
   rank's slice feeds a loss that every rank of the group computes.
@@ -39,20 +42,24 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Pending", "all_gather", "all_to_all", "gather_dim",
-           "gather_seq", "mean", "scatter_seq", "slowest"]
+           "gather_seq", "mean", "scatter_seq", "slowest",
+           "start_all_to_all"]
 
 
 class Pending:
     """An asynchronous collective in flight: ``wait()`` before its output
-    is read. A finished (synchronous) one has no work to wait for."""
+    is read. ``Pending()`` has no work to wait for. ``keep`` holds the
+    tensors the collective reads until it is waited on."""
 
-    def __init__(self, work=None):
+    def __init__(self, work=None, keep=None):
         self.work = work
+        self.keep = keep
 
     def wait(self) -> None:
         if self.work is not None:
             self.work.wait()
             self.work = None
+        self.keep = None
 
 
 def _a2a(x: torch.Tensor, group, async_op: bool = False):
@@ -64,25 +71,28 @@ def _a2a(x: torch.Tensor, group, async_op: bool = False):
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, pending):
+    def forward(ctx, x, group):
         ctx.group = group
-        out, work = _a2a(x, group, async_op=pending is not None)
-        if pending is not None:
-            pending.work = work
-        return out
+        return _a2a(x, group)[0]
 
     @staticmethod
     def backward(ctx, g):
-        return _a2a(g, ctx.group)[0], None, None
+        return _a2a(g, ctx.group)[0], None
 
 
-def all_to_all(x: torch.Tensor, group, async_op: bool = False
-               ) -> Tuple[torch.Tensor, Pending]:
-    """All-to-All of ``x`` (dim 0 split into equal chunks, one a rank);
-    returns (output, :class:`Pending`)."""
-    pending = Pending() if async_op else None
-    out = _AllToAll.apply(x, group, pending)
-    return out, pending or Pending()
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """All-to-All of ``x`` (dim 0 split into equal chunks, one a
+    rank)."""
+    return _AllToAll.apply(x, group)
+
+
+def start_all_to_all(x: torch.Tensor, group
+                     ) -> Tuple[torch.Tensor, Pending]:
+    """The All-to-All of ``all_to_all``, issued asynchronously and
+    without autograd: (output, :class:`Pending`)."""
+    src = x.detach().contiguous()
+    out, work = _a2a(src, group, async_op=True)
+    return out, Pending(work, keep=src)
 
 
 def gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:

@@ -62,7 +62,7 @@ across cards, gloo when the ranks share a card or run on the CPU), and
 ``--kv-sharding dp`` shards the KV pools over the ranks' data axis; rank
 0 prints, with a ``mesh:`` line as the JAX launcher's. The decode step
 then runs eagerly (the captured step over ranks is ROADMAP.md's Queue 1
-item 3c, and so is the HTTP ingress over ranks: ``--http-port`` with
+item 3d, and so is the HTTP ingress over ranks: ``--http-port`` with
 ``--devices`` > 1 is an error). The JAX launcher's flag rules:
 ``--devices`` > 1 needs ``--engine``, ``--kv-sharding dp`` needs
 ``--devices`` > 1:
@@ -388,7 +388,7 @@ def main(argv: Optional[Sequence[str]] = None, *,
                      "runs on one device)")
         if args.http_port >= 0:
             ap.error("--http-port serves one device: the ingress over ranks "
-                     "is ROADMAP.md's Queue 1 item 3c")
+                     "is ROADMAP.md's Queue 1 item 3d")
     elif args.kv_sharding == "dp":
         ap.error("--kv-sharding dp shards the KV pools over the ranks' data "
                  "axis; it requires --devices > 1")

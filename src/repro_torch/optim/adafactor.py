@@ -21,6 +21,17 @@ periods), a second sums ``u * u`` for the RMS, and a third recomputes
 ``u`` and writes the parameters in place. A large period leaf is walked
 in slices along its axis 0 (``groups.slices``), which keeps every
 statistic over its last two axes exact.
+
+Over ranks, ``update(split=)`` names each group's ``groups.Split``. An
+expert leaf ``w_up [E, M, H]`` / ``w_down [E, H, M]`` is split on E over
+the EP group and, as a ZeRO-3 shard, on its last axis over dp: ``vr``'s
+sum over the last axis is then summed over dp before it is divided by
+the global width (``vr`` comes out the same on every rank of the
+group), while ``vc`` (axis -2) and ``r``'s mean over ``vr``'s last axis
+read whole axes. The RMS clip's sum of ``u * u`` is summed over the
+group the leaf is split over and divided by the global count. The
+replicated leaves take no collective: their gradients are already
+reduced and equal on every rank.
 """
 from __future__ import annotations
 
@@ -29,8 +40,10 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.optim.groups import Group, get, groups, mirror, slices
+from repro_torch.optim.groups import (Group, Split, get, groups, mirror,
+                                     slices)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,8 +84,9 @@ def _at(x, sl):
 
 @torch.no_grad()
 def _update_group(gr: Group, grads: list, s: Dict, cfg: AdafactorConfig,
-                  beta2: float, lr: float) -> None:
-    """One group's update (its leaves and state written in place)."""
+                  beta2: float, lr: float, sp: Split = Split()) -> None:
+    """One group's update (its leaves and state written in place); ``sp``
+    how the group is cut over ranks."""
     shape = _jax_shape(gr)
     n_per = len(gr.leaves)
     factored = _factored(shape)
@@ -108,7 +122,11 @@ def _update_group(gr: Group, grads: list, s: Dict, cfg: AdafactorConfig,
                 v.copy_(beta2 * v + one_m * g2)
                 continue
             vr = _at(state_of(i, "vr"), sl)
-            vr.copy_(beta2 * vr + one_m * (g2.sum(-1) / g2.shape[-1]))
+            rows = g2.sum(-1)
+            if sp.cols is not None:
+                dist.all_reduce(rows, group=sp.cols)
+            vr.copy_(beta2 * vr + one_m * (rows / (g2.shape[-1]
+                                                   * sp.cols_ranks)))
             if shared:
                 col = g2 if col is None else col + g2
             else:
@@ -144,6 +162,9 @@ def _update_group(gr: Group, grads: list, s: Dict, cfg: AdafactorConfig,
             sq = part if sq is None else sq + part
             numel += u.numel()
             del u
+    if sp.whole is not None:
+        dist.all_reduce(sq, group=sp.whole)
+        numel *= sp.whole_ranks
     rms = torch.sqrt(sq / numel + 1e-30)
     div = torch.clamp(rms / cfg.clip_threshold, min=1.0)
     lr_wd = float(f32(lr) * f32(cfg.weight_decay))
@@ -159,16 +180,18 @@ def _update_group(gr: Group, grads: list, s: Dict, cfg: AdafactorConfig,
 
 
 def update(grads, state: Dict, params, cfg: AdafactorConfig,
-           lr_scale=1.0) -> Dict:
+           lr_scale=1.0, split=None) -> Dict:
     """One Adafactor step: ``params`` and ``state["factored"]`` are
     updated in place; returns the new state. ``grads`` mirrors
-    ``params`` (None leaves count as zero gradients)."""
+    ``params`` (None leaves count as zero gradients). ``split``:
+    ``path -> groups.Split | None`` over ranks (a group's path)."""
     count = state["count"] + 1
     f32 = np.float32
     beta2 = float(f32(1.0) - f32(count) ** f32(-cfg.decay))
     lr = float(f32(cfg.lr) * f32(lr_scale))
     gmap = {g.path: g.leaves for g in groups(grads)}
     for gr in groups(params):
+        sp = split(gr.path) if split is not None else None
         _update_group(gr, gmap[gr.path], get(state["factored"], gr.path),
-                      cfg, beta2, lr)
+                      cfg, beta2, lr, sp or Split())
     return {"factored": state["factored"], "count": count}

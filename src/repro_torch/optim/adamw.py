@@ -22,6 +22,13 @@ each, while ``final_norm``'s stay fp32. The update dequantises, steps
 and requantises a large leaf slice by slice along axis 0, so that no
 temporary of the whole leaf is made; rows run along the last axis, so
 each row's scale is the same as over the whole leaf.
+
+Over ranks, ``update(split=)`` names each leaf's ``groups.Split``: a
+ZeRO-3 expert shard holds part of every row, so its row maximum is
+reduced (``all_reduce`` MAX) over the dp group before the scale is
+taken, and the scale comes out the same on every rank of the group
+while each keeps its own int8 columns. An expert leaf split only over
+the EP group, on its leading axis, holds whole rows.
 """
 from __future__ import annotations
 
@@ -30,8 +37,8 @@ from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.models.module import leaves
 from repro_torch.optim.groups import paths, slices
 
 
@@ -86,15 +93,19 @@ def _dequantize(x: Q8, sl) -> torch.Tensor:
     return x.q[sl].float() * x.scale[sl]
 
 
-def _quantize_into(x: torch.Tensor, out: Q8, sl) -> None:
-    """``out[sl] = _quantize(x)``; overwrites ``x``."""
-    scale = x.abs().amax(dim=-1, keepdim=True).clamp_min_(1e-12).div_(127.0)
+def _quantize_into(x: torch.Tensor, out: Q8, sl, cols=None) -> None:
+    """``out[sl] = _quantize(x)``; overwrites ``x``. ``cols``: the group
+    the rows' other columns lie on."""
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    if cols is not None:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=cols)
+    scale = amax.clamp_min_(1e-12).div_(127.0)
     out.scale[sl].copy_(scale)
     out.q[sl].copy_(x.div_(scale).round_())
 
 
 def _q8_step(g, m: Q8, v: Q8, p, cfg: AdamWConfig, b1c: float, b2c: float,
-             lr: float) -> None:
+             lr: float, cols=None) -> None:
     """One step of a leaf with int8 moments, in slices along axis 0, in
     the JAX package's order of operations."""
     for sl in slices(p.shape, 2):
@@ -110,16 +121,17 @@ def _q8_step(g, m: Q8, v: Q8, p, cfg: AdamWConfig, b1c: float, b2c: float,
             step.add_(ps.float() * cfg.weight_decay)
         ps.copy_(ps.float() - step.mul_(lr))
         del step
-        _quantize_into(m_new, m, sl)
-        _quantize_into(v_new, v, sl)
+        _quantize_into(m_new, m, sl, cols)
+        _quantize_into(v_new, v, sl, cols)
 
 
 @torch.no_grad()
 def update(grads, state: Dict, params, cfg: AdamWConfig,
-           lr_scale=1.0) -> Dict:
+           lr_scale=1.0, split=None) -> Dict:
     """One AdamW step: ``params`` and the moments are updated in place;
     returns the new state. ``grads`` mirrors ``params`` (leaves may be
-    None for a parameter that got no gradient: it is treated as zero)."""
+    None for a parameter that got no gradient: it is treated as zero).
+    ``split``: ``path -> groups.Split | None`` over ranks."""
     count = state["count"] + 1
     f32 = np.float32
     b1c = f32(1) - f32(cfg.b1) ** f32(count)
@@ -127,10 +139,12 @@ def update(grads, state: Dict, params, cfg: AdamWConfig,
     lr = float(f32(cfg.lr) * f32(lr_scale))
     b1c, b2c = float(b1c), float(b2c)
     flat = lambda t: [x for _, x in paths(t)]  # noqa: E731 (Q8 a leaf)
-    for g, m, v, p in zip(flat(grads), flat(state["m"]), flat(state["v"]),
-                          leaves(params)):
+    for g, m, v, (path, p) in zip(flat(grads), flat(state["m"]),
+                                  flat(state["v"]), paths(params)):
         if isinstance(m, Q8):
-            _q8_step(g, m, v, p, cfg, b1c, b2c, lr)
+            sp = split(path) if split is not None else None
+            _q8_step(g, m, v, p, cfg, b1c, b2c, lr,
+                     sp.cols if sp is not None else None)
             continue
         g = torch.zeros_like(m) if g is None else g.float()
         m.mul_(cfg.b1).add_(g * (1 - cfg.b1))

@@ -12,12 +12,30 @@ stacking the leaves themselves.
 
 A tree here nests dicts and lists; anything else (a tensor, a ``Q8``
 pair) is a leaf.
+
+Over ranks (``runtime.train(dist=)``) a leaf may be a shard of the JAX
+package's global leaf: ``Split`` says over which process groups, so that
+an optimizer's statistics that span the split axes take their
+collective.
 """
 from __future__ import annotations
 
 from typing import Any, Iterator, List, NamedTuple, Tuple
 
 Path = Tuple[Any, ...]
+
+
+class Split(NamedTuple):
+    """How a leaf (or a stacked group) is cut over ranks. ``cols``: the
+    process group its last axis is split over (a ZeRO-3 expert shard's
+    dp group), ``cols_ranks`` that group's size; ``whole``: the group
+    over which the whole leaf is split (an expert leaf's EP group, or
+    the world under ZeRO-3), ``whole_ranks`` its size. An optimizer
+    takes ``split(path) -> Split | None`` (None: the whole leaf)."""
+    cols: Any = None
+    cols_ranks: int = 1
+    whole: Any = None
+    whole_ranks: int = 1
 
 
 class Group(NamedTuple):

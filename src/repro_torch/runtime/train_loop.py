@@ -38,9 +38,11 @@ every global batch. Its loss is its share of the whole batch's
 ``compress_grads`` then quantizes the reduced gradients, as the JAX step
 does the global ones (a ZeRO-3 row takes its maximum over dp), and the
 grad norm sums each sharded leaf over its group and each replicated one
-once. Checkpoints under ``dist``, and the 8-bit AdamW and Adafactor
-where they would read rows split over ranks, raise
-``NotImplementedError`` (ROADMAP.md's Queue 1 item 3c).
+once. The 8-bit AdamW and Adafactor take each expert leaf's
+``optim.groups.Split`` (``_splits``) and reduce the statistics that span
+its split axes over the ranks that hold them; the replicated leaves
+need no collective. Checkpoints under ``dist`` write each rank's part
+and restore onto any mesh (``state_layout``, a ``ckpt.Layout``).
 """
 from __future__ import annotations
 
@@ -52,8 +54,9 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.ckpt import Layout
 from repro_torch.configs.base import ArchConfig
-from repro_torch.convert import shard_tree
+from repro_torch.convert import leaf_cut, shard_tree
 from repro_torch.core.selector import Resolver
 from repro_torch.core.types import GPU_H100, HardwareSpec, Strategy
 from repro_torch.device import resolve_device
@@ -64,7 +67,7 @@ from repro_torch.models.module import leaves, unflatten
 from repro_torch.moe.layer import zero3_ok
 from repro_torch.obs import Recorder
 from repro_torch.optim import get_optimizer, lr_schedule
-from repro_torch.optim.groups import paths
+from repro_torch.optim.groups import Split, paths
 
 log = logging.getLogger("repro_torch.runtime")
 
@@ -103,12 +106,17 @@ def init_state(cfg: ArchConfig, opts: TrainOptions, *, seed: int = 0,
         params = shard_tree(params, cfg, dist)
     params = _map(params, lambda p: p.detach().to(dev).requires_grad_(True))
     opt_mod, ocfg = get_optimizer(cfg.optimizer, opts.lr)
-    _check_optimizer(cfg, params, dist)
     state = {"params": params, "opt": opt_mod.init(params, ocfg), "step": 0}
     if opts.compress_grads:
         state["grad_err"] = _map(params, lambda p: torch.zeros(
             p.shape, dtype=torch.float32, device=p.device))
     return state
+
+
+def _kind(path, expert: str) -> str:
+    if leaf_cut(path, False) is not None:
+        return expert
+    return "local" if "moe" in path else "dense"
 
 
 def _leaf_kinds(params, cfg: ArchConfig, dist) -> list:
@@ -117,29 +125,50 @@ def _leaf_kinds(params, cfg: ArchConfig, dist) -> list:
     only), ``expert`` or ``expert_z3`` (a ZeRO-3 shard,
     ``moe.layer.zero3_ok``)."""
     expert = "expert_z3" if zero3_ok(cfg, dist) else "expert"
-    out = []
-    for path, _ in paths(params):
-        if "moe" not in path:
-            out.append("dense")
-        elif path[path.index("moe") + 1] != "experts":
-            out.append("local")
-        else:
-            out.append(expert)
-    return out
+    return [_kind(path, expert) for path, _ in paths(params)]
 
 
-def _check_optimizer(cfg: ArchConfig, params, dist) -> None:
-    """The 8-bit AdamW's row scales and Adafactor's factored statistics
-    and RMS clip read whole rows and leaves; they are not reduced across
-    ranks yet."""
-    if dist is None or cfg.optimizer == "adamw":
-        return
-    kinds = set(_leaf_kinds(params, cfg, dist))
-    if "expert_z3" in kinds or (cfg.optimizer == "adafactor"
-                                and dist.ep_size > 1):
-        raise NotImplementedError(
-            f"{cfg.optimizer} over ZeRO-3 shards (or Adafactor over "
-            f"expert-parallel ranks) comes with ROADMAP.md's Queue 1 item 3c")
+def _splits(cfg: ArchConfig, dist) -> Optional[Callable]:
+    """The optimizers' ``split``: an expert leaf (or stacked group, by
+    path) is cut over the EP group on its leading axis and, a ZeRO-3
+    shard, over dp on its last (the whole leaf then over the world);
+    every other leaf is whole on every rank."""
+    if dist is None:
+        return None
+    if zero3_ok(cfg, dist):
+        cut = Split(dist.dp_group, dist.dp_size,
+                    torch.distributed.group.WORLD, dist.world_size)
+    elif dist.ep_size > 1:
+        cut = Split(whole=dist.ep_group, whole_ranks=dist.ep_size)
+    else:
+        return None
+    return lambda path: cut if leaf_cut(path, False) is not None else None
+
+
+def state_layout(cfg: ArchConfig, dist) -> Layout:
+    """This rank's ``ckpt.Layout`` of a train state (``convert.leaf_cut``):
+    a leaf cut over the experts is written by the first rank of the dp
+    group, one cut over both by every rank, a whole one by rank 0."""
+    zero3 = zero3_ok(cfg, dist)
+
+    def cut(key: str, ndim: int) -> tuple:
+        c = leaf_cut(key.split("/"), zero3)
+        if c is None:
+            return ()
+        parts = [(c[0], dist.ep_rank, dist.ep_size)]
+        if c[1]:
+            parts.append((ndim - 1, dist.dp_rank, dist.dp_size))
+        return tuple(p for p in parts if p[2] > 1)
+
+    def owns(key: str, ndim: int) -> bool:
+        c = leaf_cut(key.split("/"), zero3)
+        split_ep = c is not None and dist.ep_size > 1
+        split_dp = c is not None and c[1] and dist.dp_size > 1
+        return ((split_ep or dist.ep_rank == 0)
+                and (split_dp or dist.dp_rank == 0))
+
+    return Layout(rank=dist.rank, world=dist.world_size, cut=cut,
+                  owns=owns, device=dist.device)
 
 
 def _reduce_grads(grads: list, kinds: list, dist) -> list:
@@ -187,6 +216,7 @@ def _step_parts(cfg: ArchConfig, opts: TrainOptions, dist=None):
     nothing — and ``update(state, grads, metrics)``, which writes the
     parameters, moments and compression error in place."""
     opt_mod, ocfg = get_optimizer(cfg.optimizer, opts.lr)
+    split = _splits(cfg, dist)
 
     def grads_of(params, batch):
         flat = leaves(params)
@@ -234,7 +264,7 @@ def _step_parts(cfg: ArchConfig, opts: TrainOptions, dist=None):
         # the tree, not the flat leaves: the 8-bit AdamW and Adafactor
         # read the period leaves as JAX's stacked ones (optim.groups)
         opt = opt_mod.update(unflatten(params, grads), state["opt"], params,
-                             ocfg, lr_scale=scale)
+                             ocfg, lr_scale=scale, split=split)
         new_state.update(opt=opt, step=state["step"] + 1)
         out = {k: float(v) for k, v in metrics.items()}
         out.update(grad_norm=float(torch.sqrt(gnorm)), lr_scale=scale)
@@ -476,6 +506,14 @@ class AdaptiveController:
         return fn, info
 
 
+def _any_rank(failed: bool, dist) -> bool:
+    """Whether this step failed on any rank: one flag ``all_reduce``
+    (MAX) over the world."""
+    flag = torch.tensor([float(failed)], device=dist.device)
+    torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX)
+    return bool(flag.item())
+
+
 def _rows(batch: Dict[str, np.ndarray], dist) -> Dict[str, np.ndarray]:
     """This rank's data-parallel rows of a global batch."""
     if dist is None or dist.dp_size == 1:
@@ -528,11 +566,16 @@ def train(cfg: ArchConfig, *, steps: int, batch_source,
 
     Under ``dist`` (a ``DistContext``) ``batch_source`` yields the global
     batch, as in the JAX loop, and each rank trains on its dp rows; the
-    state is this rank's (``init_state(dist=)``). Checkpoints under
-    ``dist`` come with ROADMAP.md's Queue 1 item 3c."""
-    if dist is not None and checkpointer is not None:
-        raise NotImplementedError(
-            "checkpoints under dist come with ROADMAP.md's Queue 1 item 3c")
+    state is this rank's (``init_state(dist=)``). A checkpointer then
+    saves each rank's part and restores this rank's from a checkpoint
+    of any mesh or of one device (``state_layout``). Retry and
+    roll-back are agreed: every rank reaches one flag ``all_reduce``
+    after the step's last collective (the end of the update), and if any
+    rank failed, every rank rolls back to the latest checkpoint (or,
+    without one, raises); a step is not retried on one rank alone. A
+    failure on only some ranks before that point leaves the others in a
+    collective that does not complete: it is bounded by the process
+    group's timeout, after which the run raises."""
     opts = opts or TrainOptions()
     if state is None:
         state = init_state(cfg, opts, seed=0, device=device, dist=dist)
@@ -555,8 +598,12 @@ def train(cfg: ArchConfig, *, steps: int, batch_source,
 
     start = 0
     saved = None                    # the step whose state was saved last
+    # over ranks the checkpointer takes this rank's layout; on one device
+    # it is called as the JAX loop calls its own
+    ck_kw = ({"shardings": state_layout(cfg, dist)}
+             if dist is not None and checkpointer is not None else {})
     if checkpointer is not None:
-        restored = checkpointer.restore_latest(like=state)
+        restored = checkpointer.restore_latest(like=state, **ck_kw)
         if restored is not None:
             state, start = restored["state"], int(restored["step"])
             saved = start
@@ -567,6 +614,7 @@ def train(cfg: ArchConfig, *, steps: int, batch_source,
     while step < steps:
         batch = _to_device(_rows(batch_source.batch_at(step), dist), dev)
         attempt = 0
+        error = None
         try:
             while True:
                 try:
@@ -581,17 +629,25 @@ def train(cfg: ArchConfig, *, steps: int, batch_source,
                     attempt += 1
                     log.exception("step %d failed (attempt %d)", step,
                                   attempt)
-                    if attempt > max_retries:
+                    if dist is not None or attempt > max_retries:
                         raise
             state, metrics = update(state, grads, metrics)
             del grads
-        except Exception:
-            restored = (checkpointer.restore_latest(like=state)
+        except Exception as e:
+            error = e
+        failed = error is not None
+        if dist is not None:
+            failed = _any_rank(failed, dist)
+        if failed:
+            grads = None
+            restored = (checkpointer.restore_latest(like=state, **ck_kw)
                         if checkpointer is not None else None)
             if restored is None:
-                raise
-            log.exception("step %d failed; rolling back", step)
-            grads = None
+                if error is not None:
+                    raise error
+                raise RuntimeError(f"step {step} failed on another rank")
+            log.warning("step %d failed%s; rolling back", step,
+                        "" if error is not None else " on another rank")
             state, step = restored["state"], int(restored["step"])
             saved = step
             log.warning("rolled back to step %d", step)
@@ -603,11 +659,11 @@ def train(cfg: ArchConfig, *, steps: int, batch_source,
             heartbeat(step, metrics)
         step += 1
         if checkpointer is not None and step % ckpt_every == 0:
-            checkpointer.save(step, state)
+            checkpointer.save(step, state, **ck_kw)
             saved = step
     if checkpointer is not None:
         if saved == steps:
             checkpointer.wait()
         else:
-            checkpointer.save(steps, state, block=True)
+            checkpointer.save(steps, state, block=True, **ck_kw)
     return state, history

@@ -20,7 +20,7 @@ runs the step eagerly over the same buffers.
 
 Over ranks (``dist``) the step runs eagerly: the graph would hold the
 MoE's collectives, and NCCL inside a captured graph is ROADMAP.md's
-Queue 1 item 3c (gloo's collectives cannot be captured at all), so
+Queue 1 item 3d (gloo's collectives cannot be captured at all), so
 ``graph=True`` under a process group raises ``NotImplementedError``.
 Each rank computes the slots of ``StateCache.decode_rows``: every slot
 over replicated pools, its shard's over dp-sharded ones.
@@ -59,7 +59,7 @@ class DecodeStep:
         if graph and dist is not None:
             raise NotImplementedError(
                 "a captured decode step over ranks needs NCCL collectives "
-                "inside the CUDA graph: ROADMAP.md Queue 1 item 3c; pass "
+                "inside the CUDA graph: ROADMAP.md Queue 1 item 3d; pass "
                 "decode_graph=False")
         self.params, self.kv, self.cfg = params, kv, cfg
         self.attn_kernel = attn_kernel

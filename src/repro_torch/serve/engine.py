@@ -105,7 +105,7 @@ all in lockstep (SPMD):
   from its shard's first rank (rank 0 over replicated pools).
 
 The decode step runs eagerly over ranks (``decode_graph=True`` raises:
-ROADMAP.md Queue 1 item 3c). ``stats()`` carries the JAX engine's mesh
+ROADMAP.md Queue 1 item 3d). ``stats()`` carries the JAX engine's mesh
 keys (``devices``, ``ep_size``, ``dp_size``, ``kv_sharding``,
 ``kv_shards``, ``per_device_cache_bytes``,
 ``per_device_peak_kv_used_bytes``).

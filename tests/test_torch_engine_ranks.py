@@ -242,7 +242,7 @@ def test_engine_over_ranks_matches_oracle(mesh, name, key,
 def test_misuse_over_ranks_raises(mesh, tmp_path_factory):
     for out in _run(tmp_path_factory)[mesh]:
         assert "world size" in out["devices_not_world"]
-        assert "item 3c" in out["decode_graph"]
+        assert "item 3d" in out["decode_graph"]
 
 
 def test_dp_sharding_without_a_group_raises():
@@ -255,7 +255,7 @@ def test_dp_sharding_without_a_group_raises():
 @pytest.mark.parametrize("argv", [
     ["--devices", "2"],                                  # needs --engine
     ["--engine", "--kv-sharding", "dp"],                 # needs --devices
-    ["--engine", "--devices", "2", "--http-port", "0"],  # item 3c
+    ["--engine", "--devices", "2", "--http-port", "0"],  # item 3d
 ], ids=["devices_without_engine", "dp_without_devices", "http_over_ranks"])
 def test_serve_launcher_rank_flag_rules(argv, capsys):
     """The JAX launcher's rules for ``--devices`` and ``--kv-sharding``;
@@ -264,4 +264,4 @@ def test_serve_launcher_rank_flag_rules(argv, capsys):
     with pytest.raises(SystemExit):
         launcher.main(["--reduced", "--device", "cpu"] + argv)
     err = capsys.readouterr().err
-    assert ("3c" in err) == ("--http-port" in argv)
+    assert ("3d" in err) == ("--http-port" in argv)

@@ -14,11 +14,14 @@ a (2, 2) mesh (reduced moe-gpt3-s, fp32; ZeRO-3 expert shards):
   groups) is the JAX mesh's device layout, and ``ep_split`` is JAX's;
 * every rank resolves the same ``(n, strategy)`` when their
   ``measure_fn`` timings differ (each alone would pick another n);
+* the backward pass under the overlapped schedule (n = 4) has, for NONE,
+  S4 and S1, an All-to-All in flight across each of at least three
+  other chunks' expert FFNs (their recompute or their backward) between
+  its issue and its wait, in every MoE layer; the serial schedule waits
+  on each at once;
 * the train launcher finishes under ``torch.distributed.run
-  --nproc-per-node 2 ... --device cpu``;
-* what waits for slice 3b raises ``NotImplementedError`` under
-  ``dist``: checkpoints, and the 8-bit AdamW and Adafactor over ZeRO-3
-  shards.
+  --nproc-per-node 2 ... --device cpu``, and run again over its
+  ``--ckpt-dir`` resumes from the step it saved.
 """
 import dataclasses
 import os
@@ -32,7 +35,8 @@ from repro.distributed.context import ep_split as jax_ep_split
 from repro_torch.configs import get_config
 from repro_torch.distributed import ep_split
 from torch_ep_harness import (SRC_PATH, _free_port, finish_jax_reference,
-                              run_ranks, schedule_rank, start_jax_reference)
+                              run_ranks, schedule_rank, spans,
+                              start_jax_reference)
 
 MESH = (2, 2)
 STRATEGIES = ("none", "s4", "s1")
@@ -138,22 +142,47 @@ def test_every_rank_resolves_the_same_n_strategy(tmp_path_factory):
     assert resolved.pop()[0] == min(slowest, key=slowest.get)
 
 
-def test_unported_dist_entries_raise(tmp_path_factory):
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_backward_all_to_alls_span_another_chunks_ffn(strategy,
+                                                      tmp_path_factory):
+    """Between an All-to-All's issue and its wait no FFN of its own chunk
+    can run (each stage waits on its chunk's collective before it
+    starts), so an FFN event there is another chunk's."""
     for r in _run(tmp_path_factory)["ranks"]:
-        assert r["raises"] == {"checkpointer": True, "adamw8bit": True,
-                               "adafactor": True}
+        for unroll in (True, False):
+            log = r[(strategy, unroll)]["backward"]
+            ffn = "B" if strategy == "none" else "FB"
+            assert {e[0] for e in log if e[0] in "FB"} == set(ffn)
+            per_layer = len(spans(log)) // 2
+            assert per_layer == (8 if strategy == "none" else
+                                 16 if strategy == "s4" else 12)
+            for layer in (spans(log)[:per_layer], spans(log)[per_layer:]):
+                crossed = sum(1 for s in layer if s)
+                if unroll:    # every chunk's FFN but one (n = 4)
+                    assert crossed >= 3, layer
+                else:
+                    assert crossed == 0, layer
 
 
-def test_train_launcher_over_two_ranks_on_cpu():
+def test_train_launcher_over_two_ranks_on_cpu(tmp_path):
+    """Steps 0-1 saved at 2, then a second run over the same directory to
+    4 resumes at step 2."""
     env = dict(os.environ, PYTHONPATH=SRC_PATH + (
         os.pathsep + os.environ["PYTHONPATH"]
         if os.environ.get("PYTHONPATH") else ""), OMP_NUM_THREADS="1")
-    out = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
-         "2", "--master-port", str(_free_port()), "-m",
-         "repro_torch.launch.train", "--mesh-model", "2", "--device", "cpu",
-         "--steps", "2", "--batch", "4", "--seq", "16"],
-        env=env, capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr[-3000:]
-    assert "mesh: data=1 model=2 backend=gloo world=2" in out.stdout
-    assert "final loss" in out.stdout
+    for steps, first in ((2, 0), (4, 2)):
+        out = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--nproc-per-node", "2", "--master-port", str(_free_port()),
+             "-m", "repro_torch.launch.train", "--mesh-model", "2",
+             "--device", "cpu", "--steps", str(steps), "--batch", "4",
+             "--seq", "16", "--ckpt-dir", str(tmp_path),
+             "--ckpt-every", "2"],
+            env=env, capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr[-3000:]
+        assert "mesh: data=1 model=2 backend=gloo world=2" in out.stdout
+        assert f"at step {steps - 1}" in out.stdout, out.stdout
+        assert (f"restored checkpoint at step {first}" in out.stderr) == (
+            first > 0)
+    assert sorted(os.listdir(tmp_path)) == ["step_0000000002",
+                                            "step_0000000004"]

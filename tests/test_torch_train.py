@@ -13,8 +13,8 @@ The same weights (the JAX package's init, converted) and the same
   parameter by at most ~1e-3; the gradients agree to ~1e-7);
 * the launcher runs 3 steps on the CPU (its offline resolve on the
   ``cpu-host`` spec, which has no host offload, picks S4), and the
-  entries the port lacks (int8 gradient compression, a restore onto
-  target shardings) raise ``NotImplementedError`` naming ROADMAP.md.
+  training entries the port lacks (MLA training, a non-token frontend's
+  data) raise ``NotImplementedError`` naming ROADMAP.md.
 
 Gradients under each strategy are in ``test_torch_train_grads.py``, the
 10-step curve in ``test_torch_train_curve.py``; both take their weights
@@ -175,23 +175,28 @@ def test_launcher_trains_three_steps_on_cpu(capsys):
 
 
 def test_unported_training_entries_raise(tmp_path):
-    """What the port still lacks raises ``NotImplementedError`` naming
-    ROADMAP.md: checkpoints under a ``DistContext``, and a checkpoint
-    restore onto target shardings (both slice 3b's of the expert-parallel
-    item; int8 gradient compression is ported, in
-    ``tests/test_torch_compression.py``)."""
-    from repro_torch.ckpt import Checkpointer
-    from repro_torch.distributed import DistContext
+    """What the port still lacks in training raises
+    ``NotImplementedError`` naming ROADMAP.md: MLA training and a
+    non-token frontend's data. Checkpoints under a ``DistContext`` and a
+    restore onto target shardings are ported
+    (``tests/test_torch_ep_state.py``): here a one-rank layout restores
+    what was saved."""
+    from repro_torch.ckpt import Checkpointer, Layout
     _, tcfg = _cfgs()
-    src = SyntheticTokens(tcfg, batch=2, seq=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        SyntheticTokens(dataclasses.replace(tcfg, frontend="vision_stub"),
+                        batch=2, seq=8)
+    mla = get_config("deepseek-v2-lite-16b").reduced()
+    tokens = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tlm.loss_fn(tlm.init(mla, 0, device="cpu"),
+                    {"tokens": tokens, "labels": tokens}, mla)
     ck = Checkpointer(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train(tcfg, steps=1, batch_source=src, device="cpu", checkpointer=ck,
-              dist=DistContext(dp_size=1, ep_size=1, rank=0,
-                               device=torch.device("cpu")))
-    ck.save(1, {"w": torch.zeros(2)}, block=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ck.restore(1, like={"w": torch.zeros(2)}, shardings=object())
+    ck.save(1, {"w": torch.arange(2.0)}, block=True)
+    whole = Layout(rank=0, world=1, cut=lambda key, ndim: (),
+                   owns=lambda key, ndim: True)
+    out = ck.restore(1, like={"w": torch.zeros(2)}, shardings=whole)
+    assert torch.equal(out["w"], torch.arange(2.0))
 
 
 def _one_step(tcfg, **kw):

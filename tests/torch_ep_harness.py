@@ -200,31 +200,71 @@ def compress_rank(ctx, whole, error, steps):
 
 def _events(fn):
     """``fn()`` with the MoE's All-to-Alls and expert FFNs logged in
-    issue order: ``D`` a dispatch, ``C`` a combine, ``F`` an FFN."""
-    from repro_torch.distributed import collectives
-    from repro_torch.moe import experts
-    log, a2a, ffn = [], collectives.all_to_all, experts.apply_grouped
+    issue order: ``D`` a dispatch (or its gradient), ``C`` a combine (or
+    its gradient), ``F`` an FFN."""
+    out, log = _logged(fn)
+    return out, [e[0] for e in log if e[0] in "DCF"]
 
-    def logged_a2a(x, *a, **k):
-        log.append("D" if x.dim() == 3 else "C")
-        return a2a(x, *a, **k)
 
-    def logged_ffn(*a, **k):
-        log.append("F")
-        return ffn(*a, **k)
-    collectives.all_to_all, experts.apply_grouped = logged_a2a, logged_ffn
+def _logged(fn):
+    """``fn()`` and its event log: an All-to-All ``("D" | "C", id)`` when
+    issued (``D``: a ``[E, cap, M]`` buffer, ``C``: ``[ep, e_local, cap,
+    M]``) and ``("W", id)`` when waited on (at once for a synchronous
+    one), an expert FFN's forward ``("F",)`` and backward ``("B",)``."""
+    import itertools
+
+    from repro_torch.kernels.grouped_ffn import ops
+    log, count = [], itertools.count()
+    a2a, ref = dist.all_to_all_single, ops.grouped_ffn_ref
+
+    class Work:
+        def __init__(self, work, i):
+            self.work, self.i = work, i
+
+        def wait(self, *a, **k):
+            out = self.work.wait(*a, **k)
+            log.append(("W", self.i))
+            return out
+
+    def logged_a2a(out, x, *a, async_op=False, **k):
+        i = next(count)
+        log.append(("D" if x.dim() == 3 else "C", i))
+        work = a2a(out, x, *a, async_op=async_op, **k)
+        if not async_op:
+            log.append(("W", i))
+            return work
+        return Work(work, i)
+
+    def logged_ref(*a, round_hidden=True, **k):
+        log.append(("F",) if round_hidden else ("B",))
+        return ref(*a, round_hidden=round_hidden, **k)
+    dist.all_to_all_single, ops.grouped_ffn_ref = logged_a2a, logged_ref
     try:
         out = fn()
     finally:
-        collectives.all_to_all, experts.apply_grouped = a2a, ffn
+        dist.all_to_all_single, ops.grouped_ffn_ref = a2a, ref
     return out, log
+
+
+def spans(log) -> list:
+    """Per All-to-All of ``_logged``'s log: the expert FFN events (``F``
+    or ``B``) between its issue and its wait."""
+    start, out = {}, []
+    for i, e in enumerate(log):
+        if e[0] in "DC":
+            start[e[1]] = i
+        elif e[0] == "W":
+            out.append([x[0] for x in log[start.pop(e[1]) + 1:i]
+                        if x[0] in "FB"])
+    return out
 
 
 def schedule_rank(ctx, cfgs, tokens, labels, timings):
     """The overlapped and serial schedules side by side on one rank:
     per config, loss and reduced gradients (flat), the gathered
-    gradients, and the forward's collective order; the rank's place in
-    the mesh; the controller's resolution under rank-dependent timings."""
+    gradients, the forward's collective order and the backward's event
+    log (``_logged``; n = 4); the rank's place in the mesh; the
+    controller's resolution under rank-dependent timings."""
     import dataclasses
     from repro_torch.convert import gather_params, shard_tree
     from repro_torch.models import lm
@@ -255,12 +295,15 @@ def schedule_rank(ctx, cfgs, tokens, labels, timings):
             with torch.no_grad():
                 (logits, _, _), log = _events(lambda: lm.forward(
                     served, rows["tokens"], c4, mode="prefill", dist=ctx))
+            loss, _ = lm.loss_fn(params, rows, c4, ctx)
+            _, bwd = _logged(lambda: torch.autograd.grad(
+                loss, leaves(params), allow_unused=True))
             out[(name, unroll)] = {
                 "loss": float(m["loss"]),
                 "grads": [g.numpy() for g in grads],
                 "whole": _numpy(gather_params(unflatten(params, grads),
                                               cfg, ctx)),
-                "logits": logits.numpy(), "events": log}
+                "logits": logits.numpy(), "events": log, "backward": bwd}
     cfg = next(iter(cfgs.values()))
     mine = timings[ctx.rank]
     ctl = AdaptiveController(
@@ -269,27 +312,186 @@ def schedule_rank(ctx, cfgs, tokens, labels, timings):
         device="cpu", dist=ctx)
     _, info = ctl.step_fn(None, rows, 0)
     out["resolved"] = (info["n"], info["strategy"])
-    out["raises"] = _unported(ctx, cfg)
     return out
 
 
-def _unported(ctx, cfg) -> dict:
-    """Which of slice 3b's entries raise ``NotImplementedError`` here."""
-    import dataclasses
-    from repro_torch.runtime.train_loop import TrainOptions, init_state, train
-    entries = {
-        "checkpointer": lambda: train(cfg, steps=1, batch_source=None,
-                                      checkpointer=object(), dist=ctx),
-        **{opt: lambda o=opt: init_state(
-            dataclasses.replace(cfg, optimizer=o), TrainOptions(),
-            dist=ctx) for opt in ("adamw8bit", "adafactor")}}
+# ---------------------------------------------------------------------------
+# Train states over ranks: the 8-bit AdamW and Adafactor on shards,
+# checkpoints (tests/test_torch_ep_state.py)
+# ---------------------------------------------------------------------------
+
+def flat_state(state) -> dict:
+    """A state as ``{"key/path": numpy or int}`` (the checkpoint's
+    keys), copied."""
+    from repro_torch.ckpt.checkpoint import _items
+    return {k: v.detach().cpu().numpy().copy()
+            if isinstance(v, torch.Tensor) else v for k, v in _items(state)}
+
+
+def state_bytes(state) -> int:
+    """Bytes of a state's optimizer tensors."""
+    from repro_torch.ckpt.checkpoint import _items
+    return sum(v.numel() * v.element_size() for _, v in _items(state["opt"])
+               if isinstance(v, torch.Tensor))
+
+
+def optim_steps(ctx, cfg, params_np, batch, lr, steps=2):
+    """``steps`` train steps from the JAX weights at state step 1 (the
+    first's learning-rate scale is the JAX reference's): each step's
+    gathered gradients and gathered state (flat), and this rank's
+    optimizer state bytes."""
+    from repro_torch.convert import from_jax, gather_params, gather_state
+    from repro_torch.models.module import unflatten
+    from repro_torch.runtime.train_loop import (TrainOptions, _step_parts,
+                                                init_state)
+    opts = TrainOptions(lr=lr, warmup=1, total_steps=10)
+    state = init_state(cfg, opts, params=from_jax(params_np, device="cpu"),
+                       dist=ctx)
+    state["step"] = 1
+    grads_of, update = _step_parts(cfg, opts, ctx)
+    out = {"grads": [], "states": [], "opt_bytes": state_bytes(state)}
+    for _ in range(steps):
+        grads, metrics = grads_of(state["params"], batch)
+        out["grads"].append(_numpy(gather_params(
+            unflatten(state["params"], grads), cfg, ctx)))
+        state, _ = update(state, grads, metrics)
+        out["states"].append(flat_state(gather_state(state, cfg, ctx)))
+    return out
+
+
+def _train(ctx, cfg, params_np, steps, **kw):
+    from repro_torch.convert import from_jax
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.runtime import TrainOptions, init_state, train
+    opts = TrainOptions(lr=1e-3, warmup=2, total_steps=4)
+    state = init_state(cfg, opts, params=from_jax(params_np, device="cpu"),
+                       dist=ctx)
+    return train(cfg, steps=steps, opts=opts, adaptive=False, state=state,
+                 batch_source=SyntheticTokens(cfg, 4, 32, seed=5), dist=ctx,
+                 **kw)
+
+
+def _fails_once(module, rank, call):
+    """``module.update`` that raises, after its work, on ``rank`` alone at
+    its ``call``-th call."""
+    update, calls = module.update, []
+
+    def flaky(*a, **k):
+        out = update(*a, **k)
+        calls.append(1)
+        if dist.get_rank() == rank and len(calls) == call:
+            raise RuntimeError("update failed on one rank")
+        return out
+    module.update = flaky
+    return update, calls
+
+
+def await_file(path: str, timeout: float = TIMEOUT) -> None:
+    """Waits (bounded) for ``path``, which another process writes."""
+    import time
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no {path} after {timeout} s")
+        time.sleep(0.05)
+
+
+def manifest(path: str, step: int) -> str:
+    return os.path.join(path, f"step_{step:010d}", "manifest.json")
+
+
+def ckpt_rank(ctx, cfgs, params_np, tmp, one_device):
+    """Per optimizer at this mesh: 4 steps uninterrupted; 2 steps saved
+    (``ckpt_every=2``) and a new run over the same directory to 4; a new
+    run from a copy of the step-2 checkpoint whose update fails once, on
+    rank 1 alone, at step 3; the gathered final states (flat), the runs'
+    steps, the save's blocking seconds and bytes; and whether restoring
+    ``one_device``'s one-device checkpoints (path, step; awaited) gives
+    ``shard_state`` of them."""
+    import shutil
+
+    from repro_torch.ckpt import Checkpointer
+    from repro_torch.convert import gather_state, shard_state
+    from repro_torch.optim import get_optimizer
+    from repro_torch.runtime import TrainOptions, init_state
+    from repro_torch.runtime.train_loop import state_layout
     out = {}
-    for name, fn in entries.items():
+    for name, cfg in cfgs.items():
+        ref, _ = _train(ctx, cfg, params_np, 4)
+        d = os.path.join(tmp, f"{name}_resume")
+        ck = Checkpointer(d)
+        _train(ctx, cfg, params_np, 2, checkpointer=ck, ckpt_every=2)
+        save = {"copy_s": ck.last_copy_s, "bytes": ck.last_bytes,
+                "write_s": ck.last_write_s}
+        fail = os.path.join(tmp, f"{name}_fail")
+        if ctx.rank == 0:
+            shutil.copytree(d, fail)
+        dist.barrier()
+        got, hist = _train(ctx, cfg, params_np, 4, ckpt_every=2,
+                           checkpointer=Checkpointer(d))
+        mod = get_optimizer(cfg.optimizer)[0]
+        update, calls = _fails_once(mod, rank=1, call=2)
         try:
-            fn()
-            out[name] = False
-        except NotImplementedError:
-            out[name] = True
+            failed, fhist = _train(ctx, cfg, params_np, 4, ckpt_every=2,
+                                   checkpointer=Checkpointer(fail))
+        finally:
+            mod.update = update
+        path, step = one_device[name]
+        await_file(manifest(path, step))
+        mine = Checkpointer(path).restore(
+            step, like=init_state(cfg, TrainOptions(), device="cpu",
+                                  dist=ctx),
+            shardings=state_layout(cfg, ctx))
+        whole = Checkpointer(path).restore(step, like=init_state(
+            cfg, TrainOptions(), device="cpu"))
+        want = flat_state(shard_state(whole, cfg, ctx))
+        out[name] = {
+            "ref": flat_state(gather_state(ref, cfg, ctx)),
+            "resumed": flat_state(gather_state(got, cfg, ctx)),
+            "resumed_steps": [h["step"] for h in hist],
+            "failed": flat_state(gather_state(failed, cfg, ctx)),
+            "failed_steps": [h["step"] for h in fhist],
+            "update_calls": len(calls), "save": save,
+            "one_device_restored": _flat_equal(flat_state(mine), want)}
+    return out
+
+
+def _flat_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        np.array_equal(a[k], b[k]) for k in a)
+
+
+def restore_rank(ctx, ckpts):
+    """Each of ``ckpts`` (name -> (config, dir, step); awaited) restored
+    into this mesh's fresh state: the gathered state (flat)."""
+    from repro_torch.ckpt import Checkpointer
+    from repro_torch.convert import gather_state
+    from repro_torch.runtime import TrainOptions, init_state
+    from repro_torch.runtime.train_loop import state_layout
+    out = {}
+    for name, (cfg, path, step) in ckpts.items():
+        await_file(manifest(path, step))
+        state = init_state(cfg, TrainOptions(), device="cpu", dist=ctx)
+        state = Checkpointer(path).restore(step, like=state,
+                                           shardings=state_layout(cfg, ctx))
+        out[name] = flat_state(gather_state(state, cfg, ctx))
+    return out
+
+
+def state_rank(ctx, cfgs, params_np, tokens, labels, lr, tmp, one_device,
+               ckpts):
+    """The optimizers' steps (``optim_steps``) for each config, then at
+    mesh (2, 2) ``ckpt_rank``'s runs, elsewhere ``restore_rank`` of
+    ``ckpts``."""
+    from repro_torch.runtime.train_loop import _rows
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in
+             _rows({"tokens": tokens, "labels": labels}, ctx).items()}
+    out = {"steps": {name: optim_steps(ctx, cfg, params_np, batch, lr)
+                     for name, cfg in cfgs.items()}}
+    if one_device is not None:
+        out["ckpt"] = ckpt_rank(ctx, cfgs, params_np, tmp, one_device)
+    if ckpts is not None:
+        out["restored"] = restore_rank(ctx, ckpts)
     return out
 
 

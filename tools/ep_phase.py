@@ -29,8 +29,8 @@ host memory. The parts:
   one-rank run: greedy tokens equal, logits within 1e-4 of their largest
   magnitude; the expert FFN's launches by input shape (``ep-decode``);
 * ``launcher``: ``python -m torch.distributed.run --nproc-per-node 1 -m
-  repro_torch.launch.train --mesh-model 1`` for 2 steps on NCCL
-  (``ep-launcher``);
+  repro_torch.launch.train --mesh-model 1`` for 2 steps on NCCL, saving
+  a checkpoint each step under a temporary directory (``ep-launcher``);
 * ``trace``: a ``torch.profiler`` trace of rank 0's MoE forward (one
   moe-gpt3-s layer, bf16, 2 x 1024 tokens a rank, n = 4, the overlapped
   schedule): whether chunk i+1's dispatch All-to-All overlaps chunk i's
@@ -51,9 +51,11 @@ import collections
 import datetime
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -383,8 +385,10 @@ def overlap_verdict(ev, n: int) -> dict:
     thread or on gloo's worker threads) with 2n events, in issue order
     ``D0 D1 C0 D2 C1 ... C(n-1)``, the time chunk i+1's dispatch shares
     with chunk i's ``grouped_ffn`` kernels on the card. The issuing
-    thread is the one that runs the port's ``_AllToAll``."""
-    main = next((e[4] for e in ev if e[0] == "_AllToAll"), None)
+    thread is the one that runs c10d's ``alltoall_base_`` (or the port's
+    ``_AllToAll``)."""
+    main = next((e[4] for e in ev
+                 if e[0] in ("_AllToAll", "c10d::alltoall_base_")), None)
     a2a = collections.defaultdict(list)
     for name, t0, t1, kind, thread in ev:
         low = name.lower()
@@ -477,17 +481,26 @@ def run_ranks(parts, rehearse: bool) -> list:
 
 
 def launcher_check(rehearse: bool) -> dict:
+    """The train launcher under ``torch.distributed.run`` (one rank, NCCL
+    on the card), saving a checkpoint every step under a temporary
+    directory (its start-up is the cost; the saves come with it)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + (
         os.pathsep + os.environ["PYTHONPATH"]
         if os.environ.get("PYTHONPATH") else ""), OMP_NUM_THREADS="1")
+    where = tempfile.mkdtemp(prefix="ep_launcher_ckpt_")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
            "1", "--master-port", str(_free_port()), "-m",
-           "repro_torch.launch.train", "--mesh-model", "1", "--steps", "2"]
+           "repro_torch.launch.train", "--mesh-model", "1", "--steps", "2",
+           "--ckpt-dir", where, "--ckpt-every", "1"]
     if rehearse:
         cmd += ["--device", "cpu"]
     t0 = time.perf_counter()
-    out = subprocess.run(cmd, env=env, capture_output=True, text=True,
-                         timeout=300)
+    try:
+        out = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                             timeout=300)
+        saved = sorted(os.listdir(where))
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
     if out.returncode != 0 or "final loss" not in out.stdout:
         raise AssertionError(f"launcher exited {out.returncode}:\n"
                              f"{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
@@ -495,7 +508,10 @@ def launcher_check(rehearse: bool) -> dict:
     if f"backend={backend}" not in out.stdout:
         raise AssertionError(f"launcher ran without {backend}:\n"
                              f"{out.stdout[-2000:]}")
+    if saved != ["step_0000000001", "step_0000000002"]:
+        raise AssertionError(f"launcher saved {saved}")
     return {"backend": backend, "s": time.perf_counter() - t0,
+            "saved": saved,
             "lines": [ln for ln in out.stdout.splitlines()
                       if ln.startswith(("mesh:", "final loss", "MPipeMoE"))]}
 

@@ -10,7 +10,7 @@ sharing ``cuda:0``, as phase 18's are; gloo stages every collective
 through host memory, so no time here is a multi-card number or the
 paper's speed. Each rank runs ``Engine(options=EngineOptions(devices=N,
 kv_sharding=...))`` with the decode step eager (the captured step over
-ranks is ROADMAP.md's Queue 1 item 3c). Two spawns: 2 ranks (mesh (1, 2),
+ranks is ROADMAP.md's Queue 1 item 3d). Two spawns: 2 ranks (mesh (1, 2),
 ``ep_split(2, 64)``) and 3 ranks (mesh (3, 1), ``ep_split(3, 64)``). The
 parts:
 
