@@ -38,8 +38,15 @@ order; any failure ends the run with a non-zero exit and no result line:
    head dim 192 (B 4 x S 1024 and the fixed-batch loop's B 8 x S 64, 16
    heads; the ``kernels`` line carries these rows), and in bf16 at the
    two larger paper models' training batches (B 8 x S 1024, D 128, 8 and
-   16 heads). Limits: 1e-5 in fp32 (the MLA kernel: ``ref.tolerance_mla``, the
-   same in both dtypes); in bf16 each kernel's ``ref.tolerance``: one
+   16 heads); at the GQA decoders' shapes (``gqa_phase.kernel_cases``,
+   the ``kernels`` line's ``gqa`` rows): paged decode over 8 slots of
+   the engines' lengths at D 80, G 4, window 4096 (h2o-danube-1.8b) and
+   D 256, G 2, window 1024 and none (gemma3-12b), flash attention at D 80
+   and D 256, causal and windowed, over the windowed models' longest
+   prompts (4,100 and 1,040 tokens; ``scaled_dot_product_attention``
+   with GQA and the window as a mask is the yardstick). Limits: 1e-5 in
+   fp32 (the MLA kernel: ``ref.tolerance_mla``, the same in both
+   dtypes); in bf16 each kernel's ``ref.tolerance``: one
    rounding of the largest output for paged decode and the expert FFN,
    and for flash attention a limit per element (one output rounding plus
    the bf16 rounding of its probabilities, weighted by |v|);
@@ -187,15 +194,17 @@ order; any failure ends the run with a non-zero exit and no result line:
    gathered gradient leaf); full-width DeepSeek-V2-Lite at 2 layers
    through ``lm.prefill`` and 4 ``lm.decode_step``s with ``dist``
    against the one-rank run (``ep-decode``: greedy tokens equal, logits,
-   the expert FFN's launches at the EP shapes); the train launcher
-   under ``torch.distributed.run`` on NCCL, saving a checkpoint each
-   step (``ep-launcher``); a profile
+   the expert FFN's launches at the EP shapes); a profile
    of the overlapped schedule (``ep-trace``: whether chunk i+1's
    dispatch All-to-All overlaps chunk i's expert FFN). Each rank's
    train and decode paths must give the expert FFN exactly the inputs
    ``ep_phase.ffn_cases`` names (phase 3 holds the kernel at those
    shapes) and launch the router and expert-FFN kernels once a call;
-   those launches join the main paths' counts;
+   those launches join the main paths' counts. The train launcher under
+   ``torch.distributed.run`` on NCCL, saving a checkpoint each step
+   (``ep-launcher``, 30-47 s, nearly all of it a fresh process's
+   start-up), runs only in ``tools/ep_phase.py``: with it the script
+   ran past its 1,200 s limit on a slower host;
 19. the serving engine over ranks (``tools/serve_ranks_phase.py``, which
    runs it alone): gloo processes sharing the card, eager decode steps.
    Two ranks (mesh (1, 2)): full-width, full-depth moe-gpt3-s in bf16
@@ -214,7 +223,7 @@ order; any failure ends the run with a non-zero exit and no result line:
    page). Its launches join the main paths' counts;
 20. training over ranks, finished (``tools/ep_state_phase.py``, which
    runs it alone): gloo processes sharing the card, full-width
-   moe-gpt3-s at 4 layers, fp32. Four ranks (mesh (2, 2), ZeRO-3 expert
+   moe-gpt3-s at 2 layers, fp32. Four ranks (mesh (2, 2), ZeRO-3 expert
    shards): 2 steps of ``adamw8bit`` and ``adafactor`` against the
    one-device optimizer fed the ranks' gathered gradients (bit-equal,
    and rtol 1e-6 for Adafactor), each rank's optimizer state bytes equal
@@ -229,8 +238,26 @@ order; any failure ends the run with a non-zero exit and no result line:
    backward's ms and peak memory (``ep-trace-bwd``). The expert FFN's
    inputs are ``ep_state_phase.ffn_cases``' (phase 3 holds the kernel at
    them); its launches join the main paths' counts;
-21. the ``kernels`` JSON line (the expert FFN's row carrying its EP
-   shapes, ``ep``); 22. the ``ok`` JSON line, last.
+21. the GQA + RoPE decoders (``tools/gqa_phase.py``, which runs it
+   alone): llama3-8b, h2o-danube-1.8b and gemma3-12b at full width and
+   depth and qwen1.5-110b at full width and 16 of its 80 layers, bf16,
+   weights drawn on the card: ``Engine`` warmed up and serving 8
+   requests of 16-20 new tokens through the captured decode step, on
+   the windowed models one crossing the window as it decodes and on
+   gemma3-12b one prompt past it (``gqa-serve``: peak memory, init and
+   warmup seconds, the decode step's p50; launches checked; the 10-step
+   profile only when the tool runs alone);
+   each request's greedy tokens against ``dense_greedy_reference`` on
+   the same weights, a parting allowed only at a near-tie of bf16
+   logits: along the engine's tokens each within ``gqa_phase.TIE_REL``
+   (4 bf16 epsilons) of the oracle's best logit (``gqa-oracle``); the serve
+   launcher's engine and its fixed-batch loop on those weights
+   (``gqa-launcher``); the first 4 requests (the window's among them)
+   in fp32 at full depth (qwen1.5-110b at 8 layers), every token equal
+   to the oracle's (``gqa-exact``). Its launches join the main paths' counts;
+22. the ``kernels`` JSON line (the expert FFN's row carrying its EP
+   shapes, ``ep``; paged decode and flash attention their GQA rows,
+   ``gqa``); 23. the ``ok`` JSON line, last.
 
 The serving phases 4-10 and 12-13 fix n = 4 (``adaptive=False``, the
 launcher's ``--num-partitions 4``), so their numbers compare with earlier
@@ -3610,6 +3637,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernel_rows += train_kernel_cases(torch)
     kernel_rows += route_plan_cases(torch)
+    import gqa_phase
+    kernel_rows += gqa_phase.kernel_cases(torch)
+    torch.cuda.empty_cache()
 
     # -- 4. serve -----------------------------------------------------------
     log(f"phase 4 at {time.perf_counter() - t_start:.1f} s")
@@ -3734,7 +3764,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     import ep_phase
-    ep_launches = ep_phase.ep_phase()
+    # the NCCL launcher run (ep_phase's "launcher") is left to the tool
+    # alone, for this script's time limit
+    ep_launches = ep_phase.ep_phase(tuple(p for p in ep_phase.PARTS
+                                          if p != "launcher"))
 
     # -- 19. the serving engine over ranks -----------------------------------
     log(f"phase 19 at {time.perf_counter() - t_start:.1f} s")
@@ -3751,12 +3784,23 @@ def main() -> int:
     import ep_state_phase
     ep_launches += ep_state_phase.ep_state_phase()
 
-    # -- 21. kernels line ---------------------------------------------------
+    # -- 21. the GQA + RoPE decoders -----------------------------------------
     log(f"phase 21 at {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    gqa_launches = gqa_phase.gqa_phase(torch, build)
+
+    # -- 22. kernels line ---------------------------------------------------
+    log(f"phase 22 at {time.perf_counter() - t_start:.1f} s")
     main_launches = (serve_launches + offload_launches + prefix_launches
                      + cancel_launches + obs_launches + deepseek_launches
                      + dense_launches + train_launches + memory_launches
-                     + adaptive_launches + ep_launches)
+                     + adaptive_launches + ep_launches + gqa_launches)
+    gqa_cases = {c[0] for c in gqa_phase.PAGED + gqa_phase.FLASH}
+
+    def gqa_rows(kernel):
+        return [{k: r[k] for k in D192_KEYS} for r in kernel_rows
+                if r["kernel"] == kernel and r["case"] in gqa_cases]
     def head(kernel, case="train", dtype="bfloat16"):
         return next(r for r in kernel_rows if r["kernel"] == kernel
                     and r["case"] == case and r["dtype"] == dtype
@@ -3785,11 +3829,13 @@ def main() -> int:
         "dispatch plan is a sort and more) and "
         "grouped_ffn (no single call runs a per-expert GEMM -> activation "
         "-> GEMM); flash_attention's is scaled_dot_product_attention "
-        "(is_causal), a yardstick the port never calls")
+        "(is_causal; with GQA and the window as a mask in its gqa rows), "
+        "a yardstick the port never calls")
     print(json.dumps({"kernels": [
         entry("paged_decode_attention", "paged_attention/csrc/"
               "paged_decode.cu", "paged_attention/kernel.py:69",
-              head("paged_decode_attention", "engine")),
+              head("paged_decode_attention", "engine"),
+              gqa=gqa_rows("paged_decode_attention")),
         entry("paged_mla_decode", "paged_attention/csrc/"
               "paged_mla_decode.cu", "paged_attention/kernel.py:142",
               head("paged_mla_decode", "engine")),
@@ -3806,10 +3852,11 @@ def main() -> int:
               "flash_attention/kernel.py:67", head("flash_attention"),
               d192=[{k: r[k] for k in D192_KEYS} for r in kernel_rows
                     if r["kernel"] == "flash_attention"
-                    and r["case"].startswith("d192")]),
+                    and r["case"].startswith("d192")],
+              gqa=gqa_rows("flash_attention")),
     ]}), flush=True)
 
-    # -- 22. result ---------------------------------------------------------
+    # -- 23. result ---------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

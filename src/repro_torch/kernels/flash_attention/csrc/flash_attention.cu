@@ -17,15 +17,18 @@
 // 989 TFLOP/s. Both are close, so the kernel has to keep the tensor cores
 // fed and touch every byte of q, k, v and o about once from HBM.
 //
-// bf16 design (FlashAttention-2 on mma.sync.m16n8k16, D <= 192):
+// bf16 design (FlashAttention-2 on mma.sync.m16n8k16, D a multiple of 16
+// up to 192, and 256):
 //  * One 128-thread block (4 warps) per (batch * query head, 128-row query
 //    tile); each warp owns 32 query rows as two 16-row m-tiles, so every
 //    K and V fragment it loads from shared memory feeds two products.
 //    Above D 128 (MLA's expanded prefill runs D 192: nope 128 + rope 64,
 //    v padded to match) a warp owns one m-tile and a block 64 rows: two
 //    m-tiles would hold 2 x 24 x 4 output accumulators a thread at D 192,
-//    which with the scores would spill. The
-//    grid's first dimension is batch * head and its second runs the query
+//    which with the scores would spill. At D 256 (gemma3) a warp keeps 32
+//    x 4 output accumulators a thread, so its key tiles are 32 rows, not
+//    64: 16 score accumulators a thread in place of 32. The grid's first
+//    dimension is batch * head and its second runs the query
 //    tiles from the last (the longest under causal masking) to the first,
 //    so the longest tiles start first and the short ones fill the tail.
 //  * Registers hold what a warp computes: the 32 x 64 scores S = Q K^T and
@@ -41,7 +44,7 @@
 //  * Q and K fragments come in with ldmatrix, V fragments with
 //    ldmatrix.trans, from shared-memory rows padded by 16 bytes, which
 //    keeps the eight rows of every 8x8 load on distinct banks.
-//  * K and V tiles (64 rows) are double-buffered in cp.async groups of
+//  * K and V tiles (64 rows, 32 at D 256) are double-buffered in cp.async groups of
 //    their own: K(j + 1) is copied under the softmax and PV product of
 //    tile j, V(j + 1) under the scores of tile j + 1.
 //  * The block visits only the KV tiles its mask reaches (up to its last
@@ -51,8 +54,10 @@
 //    edge crosses.
 //
 // fp32 runs on the CUDA cores (FMAs; TF32 would not hold the 1e-5 limit):
-// 64-query blocks, scores, P and the running output in shared memory.
-// Only the tests and the fp32 comparisons run it.
+// 64-query blocks, scores, P and the running output in shared memory,
+// 64-row key tiles up to D 192 and 32-row ones above (D 256: 208,896 B
+// of shared memory; 64-row tiles would take 283,648 B). Only the tests
+// and the fp32 comparisons run it.
 //
 // Plain C interface, loaded with ctypes; the launch goes on the caller's
 // stream; the return value is the cudaError_t of the launch.
@@ -75,10 +80,12 @@ __host__ __device__ constexpr int bf16_wm(int d) { return d > 128 ? 1 : 2; }
 __host__ __device__ constexpr int bf16_bq(int d) {
   return 16 * bf16_wm(d) * kWarps;
 }
-constexpr int kBK = 64;            // KV rows per tile
+// KV rows per tile at head dim d, both dtypes: 32 above D 192 (registers
+// in bf16, shared memory in fp32)
+__host__ __device__ constexpr int tile_bk(int d) { return d > 192 ? 32 : 64; }
 constexpr float kNeg = -1e30f;     // the TPU kernel's mask value
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kMaxD = 192;         // the bf16 kernel's largest head dim
+constexpr int kMaxD = 256;         // the bf16 kernel's largest head dim
 constexpr int kKVStages = 2;       // bf16 K and V ring depth
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -170,9 +177,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // Shared memory of the bf16 kernel for head dim d: the Q tile (reused to
 // stage O at the end) and the K and V rings, rows padded by 8 elements
-// (D 192: (64 + 256) x 200 x 2 = 128,000 B).
+// (D 192: (64 + 256) x 200 x 2 = 128,000 B; D 256: (64 + 128) x 264 x 2 =
+// 101,376 B).
 __host__ __device__ constexpr size_t bf16_smem_bytes(int d) {
-  return size_t(bf16_bq(d) + 2 * kKVStages * kBK) * (d + 8) * sizeof(bf16);
+  return size_t(bf16_bq(d) + 2 * kKVStages * tile_bk(d)) * (d + 8) *
+         sizeof(bf16);
 }
 
 // One instantiation per head dim D (a multiple of 16), so that every loop
@@ -186,6 +195,7 @@ __global__ void __launch_bounds__(kThreads)
         int sq, int sk, int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb,
         int64_t kss, int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh,
         float scale_log2, int causal, int window) {
+  constexpr int kBK = tile_bk(D);  // KV rows per tile
   constexpr int KQ = D / 16;    // k-steps over D
   constexpr int NO = D / 8;     // output n-tiles
   constexpr int NS = kBK / 8;   // score n-tiles
@@ -452,8 +462,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 // memory; lanes 2r and 2r + 1 own row r of a warp's 16)
 // ---------------------------------------------------------------------------
 
-constexpr int kLds = kBK + 4;      // fp32 score row stride
-constexpr int kPad32 = 4;          // fp32 tile row padding
+constexpr int kPad32 = 4;          // fp32 tile and score row padding
 
 // c (16x16, lane l: row l / 2, columns (l % 2) * 8 .. + 8) += A B, with
 // A and B row-major in shared memory; mma_bt takes B^T row-major.
@@ -492,25 +501,26 @@ struct Fma {
 
 // Above D 128 P overwrites S in place (each lane reads its score row's
 // columns into registers before it writes their probabilities, and no
-// other lane touches them), which keeps D 192 at 218,112 B, under the
-// H100's 232,448 B a block; separate, S and P would need 235,520 B.
-static_assert(kLds == kBK + kPad32, "P may share S's rows only at S's stride");
+// other lane touches them; S and P share the stride bk + kPad32), which
+// keeps D 192 at 218,112 B, under the H100's 232,448 B a block; separate,
+// S and P would need 235,520 B. bk: the key tile's rows (tile_bk).
 struct Layout32 {
   size_t q, k, v, s, p, o, total;
-  __host__ __device__ Layout32(int d) {
+  __host__ __device__ Layout32(int d, int bk) {
     const size_t tile = align128(size_t(kBQ) * (d + kPad32) * sizeof(float));
-    const size_t kvt = align128(size_t(kBK) * (d + kPad32) * sizeof(float));
-    const size_t st = align128(size_t(kBQ) * kLds * sizeof(float));
+    const size_t kvt = align128(size_t(bk) * (d + kPad32) * sizeof(float));
+    const size_t st = align128(size_t(kBQ) * (bk + kPad32) * sizeof(float));
     q = 0;
     k = q + tile;
     v = k + kvt;
     s = v + kvt;
     p = d > 128 ? s : s + st;
-    o = p + align128(size_t(kBQ) * (kBK + kPad32) * sizeof(float));
+    o = p + st;
     total = o + align128(size_t(kBQ) * (d + 4) * sizeof(float));
   }
 };
 
+template <int BK>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_fp32_kernel(
         const float* __restrict__ q, const float* __restrict__ k,
@@ -518,15 +528,17 @@ __global__ void __launch_bounds__(kThreads)
         int sq, int sk, int d, int64_t qsb, int64_t qss, int64_t qsh,
         int64_t ksb, int64_t kss, int64_t ksh, int64_t vsb, int64_t vss,
         int64_t vsh, float scale, int causal, int window) {
+  constexpr int kLds = BK + kPad32;   // score (and P) row stride
+  constexpr int kHalf = BK / 2;       // score columns a lane
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout32 lay(d);
+  const Layout32 lay(d, BK);
   float* qs = reinterpret_cast<float*>(smem + lay.q);
   float* ks = reinterpret_cast<float*>(smem + lay.k);
   float* vs = reinterpret_cast<float*>(smem + lay.v);
   float* ss = reinterpret_cast<float*>(smem + lay.s);
   float* ps = reinterpret_cast<float*>(smem + lay.p);
   float* os = reinterpret_cast<float*>(smem + lay.o);
-  const int ldt = d + kPad32, ldp = kBK + kPad32, ldo = d + 4;
+  const int ldt = d + kPad32, ldp = kLds, ldo = d + 4;
 
   const int bh = blockIdx.y, b = bh / hq, h = bh % hq, kvh = h / group;
   const int q0 = blockIdx.x * kBQ;
@@ -543,7 +555,7 @@ __global__ void __launch_bounds__(kThreads)
   int k_lo = 0, k_hi = sk;
   if (window > 0) k_lo = max(0, q0 - window + 1);
   if (causal) k_hi = min(sk, q0 + kBQ);
-  const int j_lo = k_lo / kBK, j_hi = (k_hi + kBK - 1) / kBK;
+  const int j_lo = k_lo / BK, j_hi = (k_hi + BK - 1) / BK;
 
   const int r = lane >> 1, half = lane & 1;
   const int qpos = q0 + warp * 16 + r;
@@ -554,15 +566,15 @@ __global__ void __launch_bounds__(kThreads)
   const float* qw = qs + warp * 16 * ldt;
 
   for (int j = j_lo; j < j_hi; ++j) {
-    const int kv0 = j * kBK;
-    load_rows(ks, ldt, kb + int64_t(kv0) * kss, kss, kBK, d, sk - kv0);
-    load_rows(vs, ldt, vb + int64_t(kv0) * vss, vss, kBK, d, sk - kv0);
+    const int kv0 = j * BK;
+    load_rows(ks, ldt, kb + int64_t(kv0) * kss, kss, BK, d, sk - kv0);
+    load_rows(vs, ldt, vb + int64_t(kv0) * vss, vss, BK, d, sk - kv0);
     cp_commit();
     cp_wait<0>();
     __syncthreads();
 
 #pragma unroll
-    for (int f = 0; f < kBK / 16; ++f) {
+    for (int f = 0; f < BK / 16; ++f) {
       Fma acc = {};
       for (int kk = 0; kk < d; kk += 16)
         acc.mma_bt(qw + kk, ldt, ks + f * 16 * ldt + kk, ldt);
@@ -570,11 +582,11 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncwarp();
 
-    float sv[32];
+    float sv[kHalf];
     float mx = kNeg;
 #pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int col = half * 32 + c, kpos = kv0 + col;
+    for (int c = 0; c < kHalf; ++c) {
+      const int col = half * kHalf + c, kpos = kv0 + col;
       bool ok = kpos < sk;
       if (causal) ok = ok && qpos >= kpos;
       if (window > 0) ok = ok && (qpos - kpos) < window;
@@ -586,10 +598,10 @@ __global__ void __launch_bounds__(kThreads)
     const float alpha = expf(m_run - m_new);
     float psum = 0.f;
 #pragma unroll
-    for (int c = 0; c < 32; ++c) {
+    for (int c = 0; c < kHalf; ++c) {
       const float p = expf(sv[c] - m_new);
       psum += p;
-      pw[r * ldp + half * 32 + c] = p;
+      pw[r * ldp + half * kHalf + c] = p;
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
     l_run = l_run * alpha + psum;
@@ -602,7 +614,7 @@ __global__ void __launch_bounds__(kThreads)
       Fma acc;
       acc.load(ow + f, ldo);
 #pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16)
+      for (int kk = 0; kk < BK; kk += 16)
         acc.mma(pw + kk, ldp, vs + kk * ldt + f, ldt);
       acc.store(ow + f, ldo);
     }
@@ -619,21 +631,23 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <int BK>
 int launch_fp32(const void* q, const void* k, const void* v, void* out,
                 int b, int hq, int group, int sq, int sk, int d,
                 const int64_t* st, float scale, int causal, int window,
                 cudaStream_t stream) {
   static size_t opted_in = 0;
-  const size_t smem = Layout32(d).total;
+  const size_t smem = Layout32(d, BK).total;
+  auto kernel = flash_attention_fp32_kernel<BK>;
   if (smem > opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_fp32_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = smem;
   }
   const dim3 grid((sq + kBQ - 1) / kBQ, b * hq);
-  flash_attention_fp32_kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), hq, group, sq,
       sk, d, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
@@ -648,7 +662,7 @@ extern "C" {
 // Dynamic shared memory a block needs for head dim d (dtype: 0 float32,
 // 1 bfloat16).
 size_t flash_attention_smem_bytes(int d, int dtype) {
-  return dtype == 0 ? Layout32(d).total : bf16_smem_bytes(d);
+  return dtype == 0 ? Layout32(d, tile_bk(d)).total : bf16_smem_bytes(d);
 }
 
 size_t flash_attention_smem_limit(int device) {
@@ -659,9 +673,13 @@ size_t flash_attention_smem_limit(int device) {
   return static_cast<size_t>(val);
 }
 
-// The largest head dim the kernel takes in this dtype (0 = no limit but
-// shared memory).
-int flash_attention_max_d(int dtype) { return dtype == 0 ? 0 : kMaxD; }
+// Whether the kernel has a variant for head dim d in this dtype: fp32
+// any multiple of 16 (shared memory permitting), bf16 the multiples of
+// 16 up to 192 and 256.
+int flash_attention_takes_d(int d, int dtype) {
+  if (d <= 0 || d % 16) return 0;
+  return dtype == 0 || d <= 192 || d == kMaxD;
+}
 
 // q [B, Sq, Hq, D], k/v [B, Sk, Kv, D] (Hq = Kv * group), strides in
 // elements: strides[0..2] = q's (batch, seq, head), [3..5] k's, [6..8]
@@ -670,14 +688,16 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
                     int b, int hq, int group, int sq, int sk, int d,
                     const int64_t* strides, float scale, int causal,
                     int window, int dtype, void* stream) {
-  if (d % 16 || d <= 0 || group <= 0 || hq % group ||
-      (dtype != 0 && d > kMaxD))
+  if (!flash_attention_takes_d(d, dtype) || group <= 0 || hq % group)
     return static_cast<int>(cudaErrorInvalidValue);
   if (b <= 0 || hq <= 0 || sq <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_fp32(q, k, v, out, b, hq, group, sq, sk, d, strides, scale,
-                       causal, window, s);
+    return tile_bk(d) == 64
+               ? launch_fp32<64>(q, k, v, out, b, hq, group, sq, sk, d,
+                                 strides, scale, causal, window, s)
+               : launch_fp32<32>(q, k, v, out, b, hq, group, sq, sk, d,
+                                 strides, scale, causal, window, s);
 #define FLASH_BF16(D)                                                      \
   case D:                                                                  \
     return launch_bf16<D>(q, k, v, out, b, hq, group, sq, sk, strides,     \
@@ -695,6 +715,7 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
     FLASH_BF16(160)
     FLASH_BF16(176)
     FLASH_BF16(192)
+    FLASH_BF16(256)
   }
 #undef FLASH_BF16
   return static_cast<int>(cudaErrorInvalidValue);

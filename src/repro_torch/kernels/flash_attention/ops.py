@@ -5,8 +5,9 @@ CUDA kernel (``csrc/flash_attention.cu``) on CUDA tensors or raises, and
 takes the plain version (``ref.py``) on CPU tensors; it never falls back
 from one to the other. In bf16 the kernel keeps each warp's scores,
 probabilities and running output in registers (``mma.sync`` tensor-core
-products, head dims up to 192: MLA's expanded prefill runs 192); fp32
-runs on the CUDA cores.
+products, head dims 16 to 192 in steps of 16, and 256: MLA's expanded
+prefill runs 192, gemma3 256); fp32 runs on the CUDA cores, any multiple
+of 16 whose tiles fit the device's shared memory.
 
 The gradient: the forward saves q, k and v (not the output or the
 scores); the backward recomputes attention through the plain version in
@@ -41,8 +42,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.flash_attention_smem_bytes.restype = ctypes.c_size_t
         lib.flash_attention_smem_limit.argtypes = [ctypes.c_int]
         lib.flash_attention_smem_limit.restype = ctypes.c_size_t
-        lib.flash_attention_max_d.argtypes = [ctypes.c_int]
-        lib.flash_attention_max_d.restype = ctypes.c_int
+        lib.flash_attention_takes_d.argtypes = [ctypes.c_int] * 2
+        lib.flash_attention_takes_d.restype = ctypes.c_int
     return lib
 
 
@@ -70,10 +71,9 @@ def _launch(q, k, v, causal: bool, window: int):
                          f"of 16, got {d}")
     lib = _bind(build.load("flash_attention"))
     dtype = _DTYPES[q.dtype]
-    max_d = lib.flash_attention_max_d(dtype)
-    if max_d and d > max_d:
-        raise ValueError(f"the {q.dtype} kernel takes head dims up to "
-                         f"{max_d}, got {d}")
+    if not lib.flash_attention_takes_d(d, dtype):
+        raise ValueError(f"the {q.dtype} kernel takes head dims 16 to 192 "
+                         f"in steps of 16, and 256; got {d}")
     smem = lib.flash_attention_smem_bytes(d, dtype)
     dev = q.device.index
     if dev not in _SMEM_LIMIT:

@@ -24,8 +24,8 @@
 //    that the grid fills whole waves. A block past L writes an empty
 //    partial (m = -inf, l = 0).
 //  * One pass. Each of the block's 4 warps walks its own tiles of 8
-//    tokens (16 where a row is under four 16-byte chunks, bf16 at D 16;
-//    tile i of the block goes to warp i % 4) through its own 3-stage
+//    tokens (16 where a row's 16-byte chunks are no multiple of 4: bf16
+//    at D 16 and D 80; tile i of the block goes to warp i % 4) through its own 3-stage
 //    cp.async ring of K and V rows, so no block barrier sits in the loop:
 //    a warp waits only for its own copies (cp.async.wait_group +
 //    __syncwarp). The page ids of a warp's next tile are read a tile
@@ -33,7 +33,8 @@
 //    range are zero-filled, never read from the pools, so sink and stale
 //    pages never reach the arithmetic. The G query heads of the group
 //    share every row.
-//  * Scores: 4 lanes per token (2 at bf16 D 16), each reading 16-byte
+//  * Scores: 4 lanes per token (2 at bf16 D 16 and D 80: D 80's 10
+//    chunks a row split 5 and 5), each reading 16-byte
 //    chunks of its K row from rows padded so that the 8 lanes of a
 //    quarter-warp hit 8 distinct bank groups, then a 2-step shuffle. An
 //    online softmax per warp in the log2 domain (the scale folded into one
@@ -42,8 +43,13 @@
 //    lane l owns columns l, l + 32, ... and adds p * v over the tile's
 //    rows in fp32. Scores, probabilities and PV stay fp32 in both dtypes.
 //  * Shared memory is fixed by (dtype, G, D): 4 rings of 3 stages, the
-//    query rows and the probability rows; 66 KB at bf16 D 128 and 113 KB
-//    at fp32 D 128. It does not grow with the context length.
+//    query rows and the probability rows; 66 KB at bf16 D 128, 113 KB
+//    at fp32 D 128, and at D 256 (gemma3, G 2) 112,896 B in bf16 and
+//    211,200 B in fp32 (218,112 B at G 8), under the H100's 232,448 B a
+//    block, one block an SM in fp32. It does not grow with the context
+//    length; paged_decode_smem_bytes reports it. A variant above the
+//    device's opt-in limit fails its opt-in, and paged_decode_splits
+//    then returns 0.
 //  * Merging. The warps of a block merge in shared memory. With one
 //    split the block normalises and writes the output. With more, each
 //    block writes its unnormalised [G, D] context and (m, l) per head to a
@@ -125,9 +131,9 @@ template <typename T, int kG, int kD>
 struct Shape {
   static constexpr int kVec = Elem<T>::kVec;
   static constexpr int kChunks = kD / kVec;           // 16-byte chunks a row
-  // tokens in a warp's tile: 8, so 4 lanes share a K row (16 where a row
-  // is under 4 chunks)
-  static constexpr int kTile = kChunks >= 4 ? 8 : 16;
+  // tokens in a warp's tile: 8, so 4 lanes share a K row (16, and 2
+  // lanes a row, where the chunks are no multiple of 4: bf16 D 16, D 80)
+  static constexpr int kTile = kChunks % 4 == 0 ? 8 : 16;
   static constexpr int kLpt = 32 / kTile;             // lanes a token
   static constexpr int kLaneChunks = kChunks / kLpt;  // a lane's, scores
   // row stride in 16-byte units, == kLpt (mod 8): lane l of token j reads
@@ -477,8 +483,10 @@ int by_d(int D, F& f) {
     case 16: return f.template run<T, kG, 16>();
     case 32: return f.template run<T, kG, 32>();
     case 64: return f.template run<T, kG, 64>();
+    case 80: return f.template run<T, kG, 80>();
     case 96: return f.template run<T, kG, 96>();
     case 128: return f.template run<T, kG, 128>();
+    case 256: return f.template run<T, kG, 256>();
     default: return -1;
   }
 }
@@ -526,6 +534,14 @@ cudaError_t prepare() {
   if (err == cudaSuccess && dev < kMaxDevices) opted[dev] = true;
   return err;
 }
+
+// Dynamic shared memory of the variant.
+struct SmemBytes {
+  template <typename T, int kG, int kD>
+  int run() {
+    return int(Shape<T, kG, kD>::kSmem);
+  }
+};
 
 // Blocks of the variant one SM holds at once; 0 on error.
 struct Occupancy {
@@ -613,7 +629,8 @@ extern "C" {
 // How many splits of each slot's keys the launch takes for this shape on
 // `device`: a whole number of pages each, filling whole waves of the
 // card. 0 when the kernel does not take the shape (G above 8, D not one
-// of 16, 32, 64, 96, 128) or the query fails. With more than one split
+// of 16, 32, 64, 80, 96, 128, 256), its shared memory is above the
+// device's opt-in limit, or the query fails. With more than one split
 // the launch needs a workspace of B * Kv * splits * G * (D + 2) floats
 // and B * Kv zeroed int32 counters.
 int paged_decode_splits(int B, int Kv, int G, int D, int ps, int NP,
@@ -631,6 +648,15 @@ int paged_decode_splits(int B, int Kv, int G, int D, int ps, int NP,
           cudaSuccess)
     return 0;
   return choose_splits(B * Kv, ps, NP, window, sms * per_sm);
+}
+
+// Dynamic shared memory the variant for (G, D, dtype) takes a block;
+// -1 when no variant takes the shape.
+int paged_decode_smem_bytes(int G, int D, int dtype) {
+  SmemBytes f;
+  return dtype == 0 ? by_shape<float>(G, D, f)
+         : dtype == 1 ? by_shape<__nv_bfloat16>(G, D, f)
+                      : -1;
 }
 
 // q [B, Kv, G, D], pools [P, ps, Kv, D] of one dtype, contiguous, 16-byte

@@ -31,6 +31,7 @@ MLA_NAME = "paged_mla_decode"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SPLITS = {}       # (kernel, shape, device) -> split count
 _COUNTERS = {}     # (device, stream) -> zeroed int32 counters
+HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)   # the GQA kernel's variants
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -42,6 +43,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.paged_decode_attention.restype = ctypes.c_int
         lib.paged_decode_splits.argtypes = [ctypes.c_int] * 9
         lib.paged_decode_splits.restype = ctypes.c_int
+        lib.paged_decode_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.paged_decode_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -74,14 +77,32 @@ def paged_decode_splits(q, k_pool, page_table, *, window: int = 0) -> int:
     return _SPLITS[key]
 
 
+def _refusal(lib, q, g: int, d: int) -> str:
+    """Why ``paged_decode_splits`` found no launch: no variant takes (G,
+    D), or the variant's shared memory is above the device's opt-in
+    limit (its opt-in fails), or the device query failed."""
+    smem = lib.paged_decode_smem_bytes(g, d, _DTYPES[q.dtype])
+    if smem < 0:
+        return (f"the kernel does not take {g} query heads per KV head with "
+                f"head_dim {d} (G <= 8; D one of "
+                f"{', '.join(map(str, HEAD_DIMS))}: csrc/paged_decode.cu)")
+    props = torch.cuda.get_device_properties(q.device)
+    limit = props.shared_memory_per_block_optin
+    return (f"paged decode at G={g}, D={d}, {q.dtype} found no launch on "
+            f"{q.device}: the variant takes {smem} bytes of shared memory a "
+            f"block against the device's opt-in limit of {limit}, or the "
+            f"device query failed")
+
+
 def paged_decode_attention(q, k_pool, v_pool, page_table, lens, *,
                            window: int = 0):
     """q ``[B, 1, Hq, D]``; pools ``[P, ps, Kv, D]``; page_table ``[B,
     NP]`` int32; lens ``[B]`` int32 — valid cache entries per slot
     including the token scattered this step (each >= 1; page ids in
     ``[0, P)``). Returns ``[B, 1, Hq, D]`` in q's dtype. On the card:
-    Hq / Kv <= 8 and D one of 16, 32, 64, 96, 128, any context length;
-    workspace and counters as the module says."""
+    Hq / Kv <= 8 and D one of ``HEAD_DIMS`` (16, 32, 64, 80, 96, 128,
+    256), any context length, the variant's shared memory within the
+    device's opt-in limit; workspace and counters as the module says."""
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"paged decode is single-query: q must be "
                          f"[B, 1, Hq, D], got {tuple(q.shape)}")
@@ -121,11 +142,9 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lens, *,
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("pools must be 16-byte aligned")
     splits = paged_decode_splits(q, k_pool, page_table, window=window)
-    if splits == 0:
-        raise ValueError(f"the kernel does not take {g} query heads per KV "
-                         f"head with head_dim {d} (G <= 8; D one of 16, "
-                         f"32, 64, 96, 128: csrc/paged_decode.cu)")
     lib = _bind(build.load("paged_decode"))
+    if splits == 0:
+        raise ValueError(_refusal(lib, q, g, d))
     out = torch.empty((b, kv, g, d), dtype=q.dtype, device=q.device)
     ws = cnt = None
     if splits > 1:

@@ -104,6 +104,11 @@ def configure(args) -> ArchConfig:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.num_layers:
+        if args.num_layers % cfg.period:
+            raise SystemExit(f"--num-layers {args.num_layers}: {cfg.name}'s "
+                             f"layers come in periods of {cfg.period}")
+        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
     if cfg.moe is None or args.num_partitions is None:
         return cfg
     return dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -216,6 +221,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="moe-gpt3-s")
     ap.add_argument("--reduced", action="store_true",
                     help="the config's tiny same-family reduction")
+    ap.add_argument("--num-layers", type=int, default=0,
+                    help="cut the depth to N layers, a multiple of the "
+                         "layer period (0 = the config's; qwen1.5-110b's "
+                         "80 layers of bf16 weights do not fit one card)")
     ap.add_argument("--num-partitions", type=int, default=None,
                     help="MoE pipeline chunks n for prefill, fixed "
                          "(default: resolved per prefill bucket)")
@@ -469,6 +478,7 @@ def _main(args, cfg: ArchConfig, stop, on_ingress, params) -> Dict:
         # after warmup: the exporter thread starts once the decode step
         # is captured; scrape-time refresh through the engine's gauges
         nonlocal server
+        print(f"state cache: {engine.cache_kind}", flush=True)
         if args.metrics_port >= 0:
             server = MetricsServer(obs.registry, port=args.metrics_port,
                                    refresh=engine._refresh_gauges).start()

@@ -1,6 +1,10 @@
-"""Attention: GQA/MHA with sliding windows and MLA, over the dense
-per-sequence cache (``lm.prefill`` / ``lm.decode_step``) or the paged KV
-pools of the serving engine, as ``repro.models.layers.attention``:
+"""Attention: GQA/MHA with RoPE and sliding windows, and MLA, over the
+dense per-sequence cache (``lm.prefill`` / ``lm.decode_step``) or the
+paged KV pools of the serving engine, as ``repro.models.layers.attention``.
+Every GQA path (train, dense prefill and decode, paged prefill chunk and
+decode) rotates q and k after the projection (``_rope_qk``: ``rope_theta``,
+gemma3's ``rope_local_theta`` on its local layers), so caches and pools
+hold rotated keys:
 
 * ``flash_attention`` is the JAX package's blockwise online-softmax
   attention as a plain PyTorch function (prefill chunks, with
@@ -199,12 +203,24 @@ def _proj_qkv(params, x, cfg: ArchConfig):
     return q, k, v
 
 
-def _check_positional(cfg: ArchConfig):
-    if cfg.positional == "rope" and cfg.attn.rope_theta != 0.0:
+def _rope_qk(q, k, cfg: ArchConfig, positions, *, is_global: bool):
+    """q and k rotated at ``positions`` (``[B, S]``), as the JAX
+    package's ``_rope_qk``: ``rope_theta``, or ``rope_local_theta`` on a
+    local layer (``is_global=False``) where the config sets it (gemma3);
+    unchanged without rotary positions (learned positions, or a theta of
+    0). M-RoPE raises."""
+    a = cfg.attn
+    if cfg.positional != "rope" or a.rope_theta == 0.0:
+        return q, k
+    if a.mrope:
         raise NotImplementedError(
-            "rotary positions on GQA attention come with ROADMAP.md's "
-            "'Other architectures' slice; the port serves learned "
-            "positions, and RoPE only through MLA")
+            "M-RoPE positions (qwen2-vl) come with ROADMAP.md's 'Other "
+            "architectures' slice, with its vision frontend")
+    theta = a.rope_theta
+    if not is_global and a.rope_local_theta:
+        theta = a.rope_local_theta
+    return (rope_lib.apply_rope(q, positions, theta),
+            rope_lib.apply_rope(k, positions, theta))
 
 
 def _mla_q(params, x, cfg: ArchConfig):
@@ -375,12 +391,14 @@ def _apply_mla(params, x, *, cfg: ArchConfig, positions, mode: str,
     return out, new_cache
 
 
-def _apply_paged(params, x, *, cfg: ArchConfig, positions, window: int,
-                 cache: dict):
-    """GQA over a paged KV pool; see ``apply``."""
+def _apply_paged(params, x, *, cfg: ArchConfig, positions, is_global: bool,
+                 window: int, cache: dict):
+    """GQA over a paged KV pool; see ``apply``. The pools hold every
+    position (no ring buffers): a window masks, as in the JAX package."""
     a = cfg.attn
     s = x.shape[1]
     q, k, v = _proj_qkv(params, x, cfg)
+    q, k = _rope_qk(q, k, cfg, positions, is_global=is_global)
     valid = cache.get("write_valid")
     sink = cache.get("write_sink")
     sink = 0 if sink is None else sink
@@ -448,13 +466,13 @@ def apply(params, x, *, cfg: ArchConfig, positions, is_global: bool = True,
     if a.mla is not None:
         return _apply_mla(params, x, cfg=cfg, positions=positions,
                           mode=mode, cache=cache)
-    _check_positional(cfg)
     window = 0 if (is_global and a.global_period > 1) else a.window
     if cache is not None and "k_pool" in cache:
         return _apply_paged(params, x, cfg=cfg, positions=positions,
-                            window=window, cache=cache)
+                            is_global=is_global, window=window, cache=cache)
     from repro_torch.kernels.flash_attention import flash_attention as fa
     q, k, v = _proj_qkv(params, x, cfg)
+    q, k = _rope_qk(q, k, cfg, positions, is_global=is_global)
     if mode in ("train", "prefill"):
         new_cache = None
         if mode == "prefill" and cache is not None:

@@ -9,7 +9,8 @@ refreshed in place every step. The pools are written in place, so they
 keep their addresses too. On the card the first call runs the step
 eagerly on a side stream, which sets up every kernel's host-side state
 for that stream (split counts, the GQA merge counters, shared-memory
-opt-ins, the loaded libraries, cuBLAS's workspace), and then captures
+opt-ins, the loaded libraries, cuBLAS's workspace; the RoPE frequency
+tables are made before it, on the main stream), and then captures
 the same step on that stream into a ``torch.cuda.CUDAGraph``; every later
 call refreshes the inputs and replays it. The shapes are fixed by
 ``max_slots`` and the table width, so one capture serves the engine's
@@ -47,6 +48,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import build
 from repro_torch.models import lm
+from repro_torch.models.layers import rope
 from repro_torch.serve.state_cache import StateCache, StaticInput
 
 __all__ = ["DecodeStep"]
@@ -110,6 +112,7 @@ class DecodeStep:
         and count), then capture the same step there. Returns the eager
         step's logits."""
         dev = self.kv.device
+        rope.prepare(self.cfg, dev)   # its tables outside the graph's pool
         main, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
         side.wait_stream(main)
         with torch.cuda.stream(side):

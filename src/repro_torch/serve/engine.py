@@ -143,6 +143,7 @@ from repro_torch.device import dtype_of, resolve_device
 from repro_torch.distributed.collectives import gather_dim
 from repro_torch.distributed.context import make_serving_context
 from repro_torch.models import lm
+from repro_torch.models.api import check_servable
 from repro_torch.models.layers.attention import ATTN_KERNELS as _KERNELS
 from repro_torch.models.module import leaves
 from repro_torch.obs import PID_ENGINE, PID_REQUESTS, Recorder, quantile
@@ -218,6 +219,8 @@ class EngineOptions:
 class Engine:
     def __init__(self, cfg: ArchConfig, params=None, *,
                  options: Optional[EngineOptions] = None, seed: int = 0):
+        # as the JAX engine: the servability check comes first
+        self.cache_kind = check_servable(cfg)
         self.opts = opts = options or EngineOptions()
         opts.check()
         self.device = resolve_device(opts.device)

@@ -100,5 +100,6 @@ def test_flash_kernel_rejects_wide_heads_in_bf16():
     _cuda()
     from repro_torch.kernels.flash_attention import flash_attention
     q = _randn((1, 16, 2, 208), 1, torch.bfloat16)
-    with pytest.raises(ValueError, match="head dims up to 192"):
+    with pytest.raises(ValueError, match="head dims 16 to 192 in steps of "
+                                         "16, and 256; got 208"):
         flash_attention(q, q, q)

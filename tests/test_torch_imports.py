@@ -57,7 +57,8 @@ def test_config_copy_equals_jax(reduced):
     from repro.configs import get_config as jax_config
     from repro_torch.configs import get_config
     for name in ("moe-gpt3-s", "moe-gpt3-xl", "moe-bert-l",
-                 "deepseek-v2-lite-16b"):
+                 "deepseek-v2-lite-16b", "llama3-8b", "h2o-danube-1.8b",
+                 "gemma3-12b", "qwen1.5-110b"):
         a, b = jax_config(name), get_config(name)
         if reduced:
             a, b = a.reduced(), b.reduced()
@@ -69,11 +70,22 @@ def test_config_copy_equals_jax(reduced):
 def test_param_count_matches_jax():
     from repro.configs import get_config as jax_config
     from repro_torch.configs import get_config
-    for name in ("moe-gpt3-s", "moe-bert-l", "deepseek-v2-lite-16b"):
+    for name in ("moe-gpt3-s", "moe-bert-l", "deepseek-v2-lite-16b",
+                 "h2o-danube-1.8b", "gemma3-12b"):
         assert get_config(name).param_count() == \
             jax_config(name).param_count()
         assert get_config(name).active_param_count() == \
             jax_config(name).active_param_count()
+
+
+def test_chip_scripts_never_name_jax_or_repro_imports():
+    """``chip_smoke.py`` and the phase runners it imports from ``tools/``
+    run on the card, where JAX is not installed."""
+    root = SRC.parent
+    files = [root / "chip_smoke.py"] + sorted(root.glob("tools/*_phase.py"))
+    assert root / "tools" / "gqa_phase.py" in files
+    bad = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
+    assert not bad, bad
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu():

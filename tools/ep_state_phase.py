@@ -11,10 +11,11 @@ through host memory, so no time here is a multi-card number or the
 paper's speed-up. The two parts run side by side, four ranks and two:
 
 * ``optim`` (4 ranks, mesh (2, 2): ZeRO-3 expert shards, 3072 and 768
-  divide dp 2): full-width moe-gpt3-s (d 768, 64 experts, H 3072) at 4
-  layers, fp32, capacity factor 8.0 (no route drops), a global batch of
-  4 x 256 tokens, n = 2, NONE; 2 steps of ``adamw8bit`` and of
-  ``adafactor`` against the port's one-device optimizer on the card fed
+  divide dp 2): full-width moe-gpt3-s (d 768, 64 experts, H 3072) at 2
+  layers (one MoE layer, for ``chip_smoke.py``'s time limit), fp32,
+  capacity factor 8.0 (no route drops), a global batch of 4 x 256
+  tokens, n = 2, NONE; 2 steps of ``adamw8bit`` and of ``adafactor``
+  against the port's one-device optimizer on the card fed
   the ranks' gathered gradients from the same state: the gathered state
   and parameters bit-equal (``adamw8bit``, its ``Q8`` scales included)
   or within rtol 1e-6 of each leaf's largest magnitude (``adafactor``);
@@ -84,7 +85,7 @@ def config(rehearse: bool, optimizer: str = "adamw8bit"):
     from repro_torch.configs import get_config
     cfg = get_config("moe-gpt3-s")
     cfg = cfg.reduced() if rehearse else dataclasses.replace(cfg,
-                                                             num_layers=4)
+                                                             num_layers=2)
     return dataclasses.replace(
         cfg, compute_dtype="float32", param_dtype="float32",
         optimizer=optimizer, moe=dataclasses.replace(
